@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -8,15 +9,24 @@ Phases, one or more lines each, and the last line is the result:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels of csrc/, built with nvcc from the checkout;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the same inputs, at the shapes of a pr3 forward at batch 128, in f32
-   and bf16, with its time, the plain version's time and its bound;
+   the same inputs, at the shapes of a pr3 step at batch 128, in f32 and
+   bf16, with its time, the plain version's time, its bound and, where
+   one PyTorch call computes the same function, that call's time:
+   normalize_u8 and scale_bias_relu (the serving path), channel_stats and
+   scale_bias_relu_backward (the training path);
 4. serving: the pr3 Predictor at full width (128x128 ResNet-18 + proprio
    MLP, seeded random weights through state_dict_from_jax) answers
    requests of batch 1, 8 and 128; launch counters show the kernels ran,
    and the poses agree with the same weights run on the CPU; then once
    more in bf16; latency per batch size, and the device time by kernel
    group and the device's idle share from torch.profiler;
-5. a JSON line of per-kernel numbers, the card's name and power limit,
+5. training: the pr3 trainer (engine/loop.train_on, what fit runs after
+   building its datasets) at full width on an in-memory dataset made from
+   a seed, with bn_stats="reduce" and with bn_stats="pallas": one train
+   step on the card against the same step on the CPU, 16 f32 steps with
+   one eval pass, launch counters per step, step time, images/s, the
+   device's busy time by kernel group and idle share, then 8 bf16 steps;
+6. a JSON line of per-kernel numbers, the card's name and power limit,
    and ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -29,6 +39,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +57,24 @@ K2_SITES = [((BATCH, 64, 64, 64), 1), ((BATCH, 64, 32, 32), 2),
             ((BATCH, 128, 16, 16), 2), ((BATCH, 256, 8, 8), 2),
             ((BATCH, 512, 4, 4), 2)]
 K2_RAGGED = (100003, 64)         # an M that is a multiple of no block size
+# the twenty channel_stats sites of one pr3 train step with
+# bn_stats="pallas": every BatchNorm (the stem, 16 in the blocks, 3
+# downsample shortcuts)
+K3_SITES = [((BATCH, 64, 64, 64), 1), ((BATCH, 64, 32, 32), 4),
+            ((BATCH, 128, 16, 16), 5), ((BATCH, 256, 8, 8), 5),
+            ((BATCH, 512, 4, 4), 5)]
+K3_EXTRA = [((100003, 64), "ragged"), ((100003, 3), "C=3")]
+# share of dx elements whose ReLU mask may differ from the plain version's
+# (a pre-activation within an ulp of 0); the kernel rounds x*s+b as the
+# plain version does, so none are expected
+MASK_SHARE = 1e-5
+# training phase
+TRAIN_STEPS, STEPS_PER_CALL, EVAL_BATCHES = 16, 8, 2
+DATASET_BATCHES = 8
+CMP_BATCH = 16
+# one step on the card against the same step on the CPU, f32, TF32 off
+CMP_LOSS_RTOL, CMP_GRAD_REL, CMP_STATS_RTOL, CMP_STATS_ATOL = (
+    1e-4, 1e-3, 1e-4, 1e-5)
 K1_SHAPES = [(BATCH, 128, 128, 3), (8, 128, 128, 9), (3, 37, 41, 3)]
 TIMED_LAUNCHES = 100
 L2_BYTES = 50 * 2 ** 20
@@ -204,6 +233,169 @@ def phase_kernels(fused, dev):
     return summary
 
 
+def _channels_last(x):
+    return x.contiguous(memory_format=torch.channels_last) if x.ndim == 4 \
+        else x
+
+
+def phase_channel_stats(fused, dev):
+    """K3 channel_stats at the twenty BN sites of a pr3 step, a ragged M
+    and C = 3, in f32 and bf16; returns the f32 summary over the sites."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    summary = None
+
+    def library(x):
+        return torch.var_mean(fused.channel_rows(x), dim=0, correction=0)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      nbytes=0, ops=0)
+        for shape, sites in K3_SITES + K3_EXTRA:
+            n = math.prod(shape)
+            c = shape[1]
+            copies = copies_beyond_l2(n * dtype.itemsize)
+            xs = [_channels_last((torch.randn(shape, generator=g, device=dev)
+                                  + 0.5).to(dtype)) for _ in range(copies)]
+            s, ss = fused.channel_stats(xs[0])
+            s2, ss2 = fused.channel_stats(xs[0])
+            check(torch.equal(s, s2) and torch.equal(ss, ss2),
+                  f"channel_stats {shape} {dtype}: two launches differ")
+            rs, rss = fused.channel_stats_reference(xs[0])
+            xf = fused.channel_rows(xs[0]).float()
+            tol_s = 1e-5 * xf.abs().sum(0)
+            tol_ss = 1e-5 * (xf * xf).sum(0)
+            err_s, err_ss = (s - rs).abs(), (ss - rss).abs()
+            m = n // c
+            mean, var = s / m, (ss / m - (s / m) ** 2).clamp_min(0.0)
+            rmean, rvar = rs / m, (rss / m - (rs / m) ** 2).clamp_min(0.0)
+            rel_mean = ((mean - rmean).abs() / rmean.abs().clamp_min(1e-12))
+            rel_var = ((var - rvar).abs() / rvar.abs().clamp_min(1e-12))
+            worst = int(rel_var.argmax())
+            err = max(err_s.max().item(), err_ss.max().item())
+            arg_sets = [(x,) for x in xs]
+            ms = device_ms(fused.channel_stats, arg_sets)
+            plain = device_ms(fused.channel_stats_reference, arg_sets)
+            lib = device_ms(library, arg_sets)
+            nbytes = n * dtype.itemsize + 2 * c * 4
+            b_ms, b_by = bound(nbytes, 3 * n)
+            where = f"x{sites} site(s)" if isinstance(sites, int) else sites
+            print(f"kernel channel_stats {shape} {str(dtype)[6:]} {where}: "
+                  f"max_abs_err sum {err_s.max().item():.3g} sumsq "
+                  f"{err_ss.max().item():.3g} (tol 1e-5 of sum|x|, sum x^2 "
+                  f"per channel); mean rel {rel_mean.max().item():.3g}, var "
+                  f"rel {rel_var.max().item():.3g} worst at channel {worst} "
+                  f"(var {rvar[worst].item():.4g} mean "
+                  f"{rmean[worst].item():.4g}); bitwise repeatable; kernel "
+                  f"{ms:.4f} ms plain {plain:.4f} ms library (var_mean) "
+                  f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+            check(bool((err_s <= tol_s).all() and (err_ss <= tol_ss).all()),
+                  f"channel_stats {shape} {dtype}: sums outside 1e-5 of "
+                  "sum|x|, sum x^2")
+            check(rel_var.max().item() <= 1e-4
+                  and rel_mean.max().item() <= 1e-4,
+                  f"channel_stats {shape} {dtype}: mean or var off by more "
+                  "than 1e-4 relative")
+            if isinstance(sites, int):
+                totals["max_abs_err"] = max(totals["max_abs_err"], err)
+                totals["ms"] += sites * ms
+                totals["plain_ms"] += sites * plain
+                totals["library_ms"] += sites * lib
+                totals["nbytes"] += sites * nbytes
+                totals["ops"] += sites * 3 * n
+            del xs, arg_sets, xf
+        b_ms, b_by = bound(totals["nbytes"], totals["ops"])
+        print(f"kernel channel_stats all twenty sites {str(dtype)[6:]}: "
+              f"kernel {totals['ms']:.4f} ms plain {totals['plain_ms']:.4f} "
+              f"ms library {totals['library_ms']:.4f} ms bound {b_ms:.4f} ms "
+              f"({b_by}, {totals['nbytes']} bytes)", flush=True)
+        if dtype == torch.float32:
+            summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
+                           plain_ms=totals["plain_ms"], bound_ms=b_ms,
+                           bound_by=b_by, library_ms=totals["library_ms"])
+    return summary
+
+
+def phase_sbr_backward(fused, dev):
+    """K2's backward at the nine scale_bias_relu sites and a ragged M, in
+    f32 and bf16; returns the f32 summary over the sites."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    summary = None
+    for dtype in (torch.float32, torch.bfloat16):
+        totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+        for shape, sites in K2_SITES + [(K2_RAGGED, 0)]:
+            n = math.prod(shape)
+            c = shape[1]
+            copies = copies_beyond_l2(3 * n * dtype.itemsize)
+            xs = [_channels_last(torch.randn(shape, generator=gen,
+                                             device=dev).to(dtype))
+                  for _ in range(copies)]
+            gs = [_channels_last(torch.randn(shape, generator=gen,
+                                             device=dev).to(dtype))
+                  for _ in range(copies)]
+            s = torch.rand(c, generator=gen, device=dev) + 0.5
+            b = torch.randn(c, generator=gen, device=dev) * 0.5
+            out = fused.scale_bias_relu_backward(xs[0], gs[0], s, b)
+            again = fused.scale_bias_relu_backward(xs[0], gs[0], s, b)
+            check(all(torch.equal(u, v) for u, v in zip(out, again)),
+                  f"scale_bias_relu_backward {shape} {dtype}: two launches "
+                  "differ")
+            dx, ds, db = out
+            check(dx.stride() == xs[0].stride() and dx.dtype == dtype,
+                  f"scale_bias_relu_backward {shape}: dx layout or dtype")
+            rdx, rds, rdb = fused.scale_bias_relu_backward_reference(
+                xs[0], gs[0], s, b)
+            flipped = (dx == 0) != (rdx == 0)
+            share = flipped.float().mean().item()
+            same = ~flipped
+            err_dx = ((dx.float() - rdx.float()).abs() * same).max().item()
+            magnitude = (gs[0].float().abs().max() * s.abs().max()).item()
+            tol_dx = kernel_tolerance(dtype, magnitude)
+            xr = fused.channel_rows(xs[0]).float()
+            gm = fused.channel_rows(gs[0]).float() * fused.channel_rows(
+                rdx != 0)
+            tol_ds = 1e-5 * (gm * xr).abs().sum(0) + 1e-6
+            tol_db = 1e-5 * gm.abs().sum(0) + 1e-6
+            err_ds, err_db = (ds - rds).abs(), (db - rdb).abs()
+            err = max(err_dx, err_ds.max().item(), err_db.max().item())
+            arg_sets = [(x, gg, s, b) for x, gg in zip(xs, gs)]
+            ms = device_ms(fused.scale_bias_relu_backward, arg_sets)
+            plain = device_ms(fused.scale_bias_relu_backward_reference,
+                              arg_sets)
+            nbytes = 3 * n * dtype.itemsize + 4 * c * 4
+            b_ms, b_by = bound(nbytes, 6 * n)
+            where = f"x{sites} site(s)" if sites else "ragged"
+            print(f"kernel scale_bias_relu_backward {shape} {str(dtype)[6:]} "
+                  f"{where}: mask differs at {share:.3g} of dx (limit "
+                  f"{MASK_SHARE}); max_abs_err dx elsewhere {err_dx:.3g} (tol "
+                  f"{tol_dx:.3g}) dscale {err_ds.max().item():.3g} dbias "
+                  f"{err_db.max().item():.3g} (tol 1e-5 of the sums of "
+                  f"magnitudes); bitwise repeatable; kernel {ms:.4f} ms plain "
+                  f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by}) library none",
+                  flush=True)
+            check(share <= MASK_SHARE and err_dx <= tol_dx,
+                  f"scale_bias_relu_backward {shape} {dtype}: dx differs")
+            check(bool((err_ds <= tol_ds).all() and (err_db <= tol_db).all()),
+                  f"scale_bias_relu_backward {shape} {dtype}: dscale or "
+                  "dbias outside 1e-5 of the sums of magnitudes")
+            if sites:
+                totals["max_abs_err"] = max(totals["max_abs_err"], err)
+                totals["ms"] += sites * ms
+                totals["plain_ms"] += sites * plain
+                totals["nbytes"] += sites * nbytes
+                totals["ops"] += sites * 6 * n
+            del xs, gs, arg_sets, xr, gm, out, again, rdx
+        b_ms, b_by = bound(totals["nbytes"], totals["ops"])
+        print(f"kernel scale_bias_relu_backward all nine sites "
+              f"{str(dtype)[6:]}: kernel {totals['ms']:.4f} ms plain "
+              f"{totals['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+              f"{totals['nbytes']} bytes)", flush=True)
+        if dtype == torch.float32:
+            summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
+                           plain_ms=totals["plain_ms"], bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+    return summary
+
+
 def requests(model_cfg, seed):
     """Observations of batch 1 (unbatched), 8 and 128."""
     rs = np.random.RandomState(seed)
@@ -224,8 +416,7 @@ def drive(pred, reqs, fused, label):
     """Answer every request once with the counters set to 0 just before;
     check one normalize_u8 and nine scale_bias_relu launches per forward
     chunk. Returns ({batch: (pos, quat)}, {kernel: launches})."""
-    fused.normalize_u8.launches = 0
-    fused.scale_bias_relu.launches = 0
+    _zero_counts(fused)
     answers = {}
     chunks = 0
     for n, obs in reqs.items():
@@ -275,9 +466,19 @@ def _kernel_group(name: str) -> str:
         return "normalize_u8"
     if "scale_bias_relu_kernel" in name:
         return "scale_bias_relu"
+    if "sbr_backward_partial_kernel" in name:
+        return "scale_bias_relu_backward"
+    if "channel_stats_partial_kernel" in name:
+        return "channel_stats"
+    if "fold_partials_kernel" in name:
+        # stage 2 of both reductions: K2 backward's with bn_stats="reduce",
+        # channel_stats' with "pallas"
+        return "reduction fold (stage 2)"
     if "Memcpy" in name or "Memset" in name:
         return "copies"
     low = name.lower()
+    if any(k in low for k in ("adam", "multi_tensor", "foreach")):
+        return "optimizer"
     if any(k in low for k in ("conv", "fprop", "xmma", "implicit", "dgrad",
                               "wgrad", "nhwc", "nchw", "cudnn")):
         return "convolution (cuDNN)"
@@ -286,17 +487,20 @@ def _kernel_group(name: str) -> str:
     return "other elementwise/reduction"
 
 
-def device_breakdown(pred, obs, iters=5):
-    """Device time per request, by kernel group and in all, from
-    torch.profiler; None if the profiler saw no device time."""
+def device_breakdown(run, iters):
+    """Device time per call of ``run`` (after one warm call), by kernel
+    group and in all, from torch.profiler over ``iters`` calls; None if the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pred(obs)
+    run()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            pred(obs)
+            run()
+        torch.cuda.synchronize()
     groups = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -309,9 +513,9 @@ def device_breakdown(pred, obs, iters=5):
     busy = sum(groups.values())
     if busy <= 0:
         return None
-    per_req = {g: round(us / iters / 1e3, 4) for g, us in
-               sorted(groups.items(), key=lambda kv: -kv[1])}
-    return per_req, busy / iters / 1e3
+    per_call = {g: round(us / iters / 1e3, 4) for g, us in
+                sorted(groups.items(), key=lambda kv: -kv[1])}
+    return per_call, busy / iters / 1e3
 
 
 def phase_serving(rppt, fused, smi):
@@ -367,7 +571,7 @@ def phase_serving(rppt, fused, smi):
             p50, p90 = latency_ms(pred, obs)
             print(f"serving {dtype} batch {n}: latency p50 {p50:.3f} ms "
                   f"p90 {p90:.3f} ms ({smi})", flush=True)
-            prof = device_breakdown(pred, obs)
+            prof = device_breakdown(lambda: pred(obs), iters=5)
             if prof is None:
                 print(f"profile {dtype} batch {n}: the profiler saw no "
                       "device time (not measured)", flush=True)
@@ -379,6 +583,395 @@ def phase_serving(rppt, fused, smi):
                       f"ms per request by kernel group {json.dumps(groups)}",
                       flush=True)
         del pred
+    return launches
+
+
+class MemoryDemos:
+    """An in-memory pr3 dataset made from a seed with numpy: uint8 frames,
+    proprio vectors and target poses, served by ``get_batch`` as the
+    HDF5 store serves them (data/hdf5_store.HDF5DemoStore.get_batch: the
+    same keys, dtypes and shapes, and host augmentation with the same
+    per-sample parameter stream, through the port's data/augment.py and
+    native engine). The card's host has no h5py, so the trainer reads
+    this instead of a demo file."""
+
+    def __init__(self, cfg, size: int, seed: int):
+        m, d = cfg.model, cfg.data
+        rs = np.random.RandomState(seed)
+        hw = m.image_size
+        self.camera = m.cameras[0]
+        self.hw = hw
+        self.frames = rs.randint(0, 256, (size, hw, hw, 3), np.uint8)
+        self.proprio = rs.randn(size, m.proprio_dim).astype(np.float32)
+        self.pos = rs.uniform(-0.3, 0.3, (size, 3)).astype(np.float32)
+        q = rs.randn(size, 4)
+        self.quat = (q / np.linalg.norm(q, axis=1, keepdims=True)
+                     ).astype(np.float32)
+        self.use_native = d.use_native
+        self.aug_kwargs = dict(
+            crop_scale=d.crop_scale, crop_ratio=d.crop_ratio,
+            hflip_prob=d.hflip_prob, jitter_brightness=d.jitter_brightness,
+            jitter_contrast=d.jitter_contrast,
+            jitter_saturation=d.jitter_saturation, jitter_hue=d.jitter_hue,
+            jitter_prob=d.jitter_prob)
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def proprio_stats(self):
+        return (self.proprio.mean(0, dtype=np.float64).astype(np.float32),
+                np.maximum(self.proprio.std(0, dtype=np.float64), 1e-6)
+                .astype(np.float32))
+
+    def get_batch(self, indices, augment: bool = False, seed: int = 0):
+        from rgb_proprioceptive_pose_estimator_tpu_torch.data import (
+            augment as aug,
+        )
+        from rgb_proprioceptive_pose_estimator_tpu_torch.runtime import native
+
+        indices = np.asarray(indices, dtype=np.int64)
+        n, hw = len(indices), self.hw
+        frames = self.frames[indices]
+        if augment:
+            sseeds = (seed * 1_000_003 + indices * 31) % (2 ** 31 - 1)
+            pb = aug.sample_aug_params_batch(
+                np.full(n, hw), np.full(n, hw), sseeds, **self.aug_kwargs)
+            if self.use_native and native.available():
+                crops = np.stack([pb["y0"], pb["x0"], pb["ch"], pb["cw"]], 1)
+                jit = np.stack([pb["brightness"], pb["contrast"],
+                                pb["saturation"], pb["hue"]],
+                               1).astype(np.float32)
+                frames = native.augment_batch(
+                    frames, hw, crops, pb["flip"].astype(np.uint8), jit)
+            else:
+                frames = np.stack([
+                    aug.apply_aug_params(f, aug.params_row(pb, i), hw)
+                    for i, f in enumerate(frames)])
+        return {"images": {self.camera: frames},
+                "proprio": self.proprio[indices],
+                "target_pos": self.pos[indices].copy(),
+                "target_quat": self.quat[indices].copy()}
+
+
+KERNEL_COUNTERS = ("normalize_u8", "scale_bias_relu",
+                   "scale_bias_relu_backward", "channel_stats")
+
+
+def _counts(fused):
+    return {k: getattr(fused, k).launches for k in KERNEL_COUNTERS}
+
+
+def _zero_counts(fused):
+    for k in KERNEL_COUNTERS:
+        getattr(fused, k).launches = 0
+    fused.scale_bias_relu.grad_layout_copies = 0
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _to_device(batch, dev):
+    return {k: ({c: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for c, a in v.items()} if isinstance(v, dict)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(dev))
+            for k, v in batch.items()}
+
+
+class ReluTape:
+    """The ReLU decisions of one train step, recorded on the card in call
+    order and replayed in the same step on the CPU.
+
+    One ReLU input within rounding of 0 takes another side on the card
+    than on the CPU, and moves its BatchNorm channel's gradients, and
+    those of the layers before it, by percents; a full-width step of
+    batch 16 has several such inputs among its 12 million. Replaying the
+    card's decisions on the CPU removes that one ambiguity and leaves
+    every other difference to the check. Inside ``with tape.record(fused)``
+    (card) or ``tape.replay(fused)`` (CPU) ``torch.relu`` and the
+    scale_bias_relu Function's forward and backward use the tape; the
+    mask of scale_bias_relu is that of its backward kernel,
+    round(round(x*scale) + bias) > 0."""
+
+    def __init__(self):
+        self.masks = []
+        self.by_ptr = {}
+        self.flips = 0
+        self.n = 0
+
+    def _patch(self, fused, relu, sbr_forward, sbr_backward):
+        import contextlib
+
+        @contextlib.contextmanager
+        def patched():
+            saved = (torch.relu, fused._sbr_forward,
+                     fused.scale_bias_relu_backward)
+            torch.relu, fused._sbr_forward = relu, sbr_forward
+            if sbr_backward is not None:
+                fused.scale_bias_relu_backward = sbr_backward
+            try:
+                yield self
+            finally:
+                (torch.relu, fused._sbr_forward,
+                 fused.scale_bias_relu_backward) = saved
+        return patched()
+
+    @staticmethod
+    def _pre(x, scale, bias):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return x.float() * scale.view(shape) + bias.view(shape)
+
+    def record(self, fused):
+        relu, sbr_forward = torch.relu, fused._sbr_forward
+
+        def rec_relu(x):
+            self.masks.append((x > 0).cpu())
+            return relu(x)
+
+        def rec_sbr(x, scale, bias):
+            self.masks.append((self._pre(x, scale, bias) > 0).cpu())
+            return sbr_forward(x, scale, bias)
+
+        return self._patch(fused, rec_relu, rec_sbr, None)
+
+    def replay(self, fused):
+        queue = iter(self.masks)
+
+        def take(natural):
+            m = next(queue)
+            self.flips += int((m != natural).sum())
+            self.n += m.numel()
+            return m
+
+        def rep_relu(x):
+            m = take(x > 0)
+            return torch.where(m, x, torch.zeros_like(x))
+
+        def rep_sbr(x, scale, bias):
+            pre = self._pre(x, scale, bias)
+            m = take(pre > 0)
+            self.by_ptr[x.data_ptr()] = m
+            return torch.where(m, pre, torch.zeros_like(pre)).to(x.dtype)
+
+        def rep_sbr_backward(x, g, scale, bias):
+            gm = g.float() * self.by_ptr[x.data_ptr()]
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            dims = tuple(d for d in range(x.ndim) if d != 1)
+            return ((gm * scale.view(shape)).to(x.dtype),
+                    torch.sum(gm * x.float(), dim=dims),
+                    torch.sum(gm, dim=dims))
+
+        return self._patch(fused, rep_relu, rep_sbr, rep_sbr_backward)
+
+
+def compare_step_with_cpu(rppt, fused, route, dataset, dev):
+    """One train step from the same seeded weights on the same batch of
+    CMP_BATCH, on the card and on the CPU: loss, every parameter gradient,
+    and the BatchNorm running statistics after the step. The CPU step
+    takes the card's ReLU decisions (ReluTape); how many of them differ
+    from the CPU's own, and the worst gradient without the tape, are
+    printed too."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+        forward_backward,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
+        random_jax_variables,
+        state_dict_from_jax,
+    )
+
+    cfg = rppt.preset("pr3").override(**{"model.bn_stats": route})
+    sd = state_dict_from_jax(random_jax_variables(cfg.model, seed=0),
+                             cfg.model)
+    batch = dataset.get_batch(np.arange(CMP_BATCH), augment=True, seed=5)
+
+    def step(d, tape_mode=None):
+        state = create_state(cfg, torch.device(d), sd)
+        b = _to_device(batch, d)
+        if tape_mode is None:
+            m = forward_backward(state.model, b, cfg.train)
+        else:
+            with tape_mode:
+                m = forward_backward(state.model, b, cfg.train)
+        out = (float(m["loss"]),
+               {k: p.grad.detach().cpu() for k, p in
+                state.model.named_parameters()},
+               {k: v.detach().cpu() for k, v in state.model.named_buffers()
+                if k.endswith(("running_mean", "running_var"))})
+        del state
+        return out
+
+    tape = ReluTape()
+    lg, gg, bg = step(dev, tape.record(fused))
+    lc, gc, bc = step("cpu", tape.replay(fused))
+    _, g_free, _ = step("cpu")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    loss_rel = abs(lg - lc) / abs(lc)
+    grad_rel = {k: rel(gg[k], gc[k]) for k in gc}
+    worst_g = max(grad_rel, key=grad_rel.get)
+    free_rel = {k: rel(gg[k], g_free[k]) for k in gc}
+    worst_free = max(free_rel, key=free_rel.get)
+    stats_err = {k: ((bg[k] - bc[k]).abs()
+                     / (CMP_STATS_ATOL + CMP_STATS_RTOL * bc[k].abs())
+                     ).max().item() for k in bc}
+    worst_s = max(stats_err, key=stats_err.get)
+    print(f"train {route} one step card vs CPU (batch {CMP_BATCH}, f32, TF32 "
+          f"off): loss {lg:.6f} vs {lc:.6f} rel {loss_rel:.3g} (rtol "
+          f"{CMP_LOSS_RTOL}); ReLU inputs of another sign on the CPU "
+          f"{tape.flips} of {tape.n}; with the card's ReLU decisions worst "
+          f"gradient {worst_g} {grad_rel[worst_g]:.3g} of its max (limit "
+          f"{CMP_GRAD_REL}); without them {worst_free} "
+          f"{free_rel[worst_free]:.3g}; running stats worst {worst_s} at "
+          f"{stats_err[worst_s]:.3g} of the tolerance (rtol "
+          f"{CMP_STATS_RTOL} atol {CMP_STATS_ATOL})", flush=True)
+    check(tape.n > 0 and (route != "reduce" or bool(tape.by_ptr)),
+          f"{route}: the ReLU tape missed the model's ReLUs")
+    check(loss_rel <= CMP_LOSS_RTOL, f"{route}: loss differs from the CPU's")
+    check(grad_rel[worst_g] <= CMP_GRAD_REL,
+          f"{route}: gradient of {worst_g} differs from the CPU's")
+    check(stats_err[worst_s] <= 1.0,
+          f"{route}: running statistics {worst_s} differ from the CPU's")
+
+
+def run_training(rppt, fused, route, dataset, dev, smi, ckpt_root):
+    """16 f32 steps of pr3 (2 calls of steps_per_call=8) with one eval pass
+    of EVAL_BATCHES, through engine/loop.train_on; checks the kernel
+    launches of every step and eval forward. Returns the launch counts of
+    the run."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+
+    cfg = rppt.preset("pr3").override(**{
+        "model.bn_stats": route, "train.steps": TRAIN_STEPS,
+        "train.steps_per_call": STEPS_PER_CALL,
+        "train.log_every": STEPS_PER_CALL, "train.eval_every": TRAIN_STEPS,
+        "train.eval_steps": EVAL_BATCHES, "train.ckpt_every": 0,
+        "train.ckpt_dir": f"{ckpt_root}/{route}_f32"})
+    state = create_state(cfg, dev)
+    steps, evals = [], []
+    train_step, eval_step = loop.train_step, loop.eval_step
+
+    def timed_step(st, batch, tcfg):
+        before = _counts(fused)
+        copies = fused.scale_bias_relu.grad_layout_copies
+        t = time.perf_counter()
+        m = train_step(st, batch, tcfg)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t, _delta(_counts(fused), before),
+                      fused.scale_bias_relu.grad_layout_copies - copies))
+        return m
+
+    def counted_eval(model, batch, tcfg):
+        before = _counts(fused)
+        m = eval_step(model, batch, tcfg)
+        evals.append(_delta(_counts(fused), before))
+        return m
+
+    loop.train_step, loop.eval_step = timed_step, counted_eval
+    try:
+        _zero_counts(fused)
+        out = loop.train_on(cfg, state, dataset, dataset)
+        launches = _counts(fused)
+        copies = fused.scale_bias_relu.grad_layout_copies
+    finally:
+        loop.train_step, loop.eval_step = train_step, eval_step
+
+    want_step = {"normalize_u8": 1, "scale_bias_relu": 9,
+                 "scale_bias_relu_backward": 9, "channel_stats": 0}
+    if route == "pallas":
+        want_step.update(scale_bias_relu=0, scale_bias_relu_backward=0,
+                         channel_stats=20)
+    want_eval = {"normalize_u8": 1, "scale_bias_relu": 9,
+                 "scale_bias_relu_backward": 0, "channel_stats": 0}
+    check(len(steps) == TRAIN_STEPS and len(evals) == EVAL_BATCHES,
+          f"{route}: {len(steps)} steps and {len(evals)} eval forwards")
+    for i, (_, seen, _) in enumerate(steps):
+        check(seen == want_step, f"{route} step {i + 1}: launches {seen}, "
+                                 f"expected {want_step}")
+    for i, seen in enumerate(evals):
+        check(seen == want_eval, f"{route} eval forward {i + 1}: launches "
+                                 f"{seen}, expected {want_eval}")
+    met = out["metrics"]
+    check(all(math.isfinite(met[k]) for k in ("loss", "eval_loss",
+                                              "eval_pos_mae_cm")),
+          f"{route}: non-finite metrics {met}")
+    print(f"train {route} f32: {TRAIN_STEPS} steps in calls of "
+          f"{STEPS_PER_CALL}, launches per step {want_step} (all "
+          f"{TRAIN_STEPS} steps), per eval forward {want_eval} (all "
+          f"{EVAL_BATCHES}); run total {launches}; loss {met['loss']:.5f} "
+          f"eval_loss {met['eval_loss']:.5f} eval_pos_mae_cm "
+          f"{met['eval_pos_mae_cm']:.3f}", flush=True)
+    print(f"train {route} f32: gradient layout copies per step "
+          f"{[c for _, _, c in steps]} (total {copies})", flush=True)
+
+    # steady state: the steps after the first call (kernel builds, cuDNN
+    # plans and the first batches land in the first)
+    times = [t * 1e3 for t, _, _ in steps[STEPS_PER_CALL:]]
+    p50, p90 = (float(v) for v in np.percentile(times, [50, 90]))
+    print(f"train {route} f32 batch {BATCH}: synchronized step p50 "
+          f"{p50:.3f} ms p90 {p90:.3f} ms, {BATCH / p50 * 1e3:.1f} images/s "
+          f"at p50 ({smi})", flush=True)
+    pipe = HostPipeline(dataset, cfg.data, device=dev, train=True)
+    try:
+        prof = device_breakdown(
+            lambda: loop.train_step(state, next(pipe), cfg.train), iters=4)
+    finally:
+        pipe.close()
+    if prof is None:
+        print(f"profile train {route} f32: the profiler saw no device time "
+              "(not measured)", flush=True)
+    else:
+        groups, busy_ms = prof
+        print(f"profile train {route} f32: device busy {busy_ms:.4f} ms per "
+              f"step, idle share {1 - busy_ms / p50:.3f} of the p50 step; ms "
+              f"per step by kernel group {json.dumps(groups)}", flush=True)
+    del state, out
+    return launches
+
+
+def run_training_bf16(rppt, route, dataset, dev, ckpt_root):
+    """8 bf16 steps of pr3; checks the loss is finite."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+
+    cfg = rppt.preset("pr3").override(**{
+        "model.bn_stats": route, "model.dtype": "bfloat16",
+        "train.steps": STEPS_PER_CALL, "train.steps_per_call": STEPS_PER_CALL,
+        "train.log_every": STEPS_PER_CALL, "train.eval_every": 0,
+        "train.ckpt_every": 0, "train.ckpt_dir": f"{ckpt_root}/{route}_bf16"})
+    out = loop.train_on(cfg, create_state(cfg, dev), dataset, dataset)
+    loss = out["metrics"]["loss"]
+    print(f"train {route} bf16: {STEPS_PER_CALL} steps, loss {loss:.5f}",
+          flush=True)
+    check(math.isfinite(loss), f"{route} bf16: non-finite loss {loss}")
+
+
+def phase_training(rppt, fused, dev, smi):
+    m = rppt.preset("pr3").model
+    dataset = MemoryDemos(rppt.preset("pr3"), DATASET_BATCHES * BATCH,
+                          seed=4)
+    print(f"training pr3: {m.backbone} {m.image_size}x{m.image_size}, "
+          f"batch {BATCH}, in-memory dataset of {len(dataset)} samples from "
+          f"seed 4, host augmentation on", flush=True)
+    launches = {}
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        for route in ("reduce", "pallas"):
+            compare_step_with_cpu(rppt, fused, route, dataset, dev)
+            launches[route] = run_training(rppt, fused, route, dataset, dev,
+                                           smi, ckpt_root)
+            run_training_bf16(rppt, route, dataset, dev, ckpt_root)
     return launches
 
 
@@ -408,24 +1001,32 @@ def main() -> int:
           flush=True)
 
     summary = phase_kernels(fused, dev)
-    launches = phase_serving(rppt, fused, smi)
+    summary["channel_stats"] = phase_channel_stats(fused, dev)
+    summary["scale_bias_relu_backward"] = phase_sbr_backward(fused, dev)
+    # each main path is driven with the counts set to 0 just before it and
+    # read just after; a kernel's launches are the sum over the paths
+    paths = {"serving": phase_serving(rppt, fused, smi)}
+    paths.update(phase_training(rppt, fused, dev, smi))
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in KERNEL_COUNTERS}
+    print(f"launches by main path: {json.dumps(paths)}", flush=True)
 
     source = "rgb_proprioceptive_pose_estimator_tpu_torch/csrc/fused.cu"
-    replaces = {
-        "normalize_u8": "rgb_proprioceptive_pose_estimator_tpu/ops/"
-                        "pallas_fused.py:57",
-        "scale_bias_relu": "rgb_proprioceptive_pose_estimator_tpu/ops/"
-                           "pallas_fused.py:225",
-    }
+    jax_file = "rgb_proprioceptive_pose_estimator_tpu/ops/pallas_fused.py"
+    replaces = {"normalize_u8": f"{jax_file}:57",
+                "scale_bias_relu": f"{jax_file}:225",
+                "scale_bias_relu_backward": f"{jax_file}:243",
+                "channel_stats": f"{jax_file}:144"}
     kernels = []
-    for k in ("normalize_u8", "scale_bias_relu"):
+    for k in KERNEL_COUNTERS:
         check(launches[k] > 0, f"{k} was not launched on the main path")
         s = summary[k]
         kernels.append({"name": k, "route": "cuda", "source": source,
                         "replaces": replaces[k], "launches": launches[k],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": None})
+                        "bound_by": s["bound_by"],
+                        "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """PyTorch/CUDA port of the RGB + proprioception pose estimator.
 
-It serves the same models as ``rgb_proprioceptive_pose_estimator_tpu`` (the
-JAX package, which stays the reference), with the Pallas kernels of the
-serving path replaced by hand-written CUDA kernels for Hopper (``csrc/``).
-The port imports neither JAX nor the JAX package.
+It trains and serves the models of ``rgb_proprioceptive_pose_estimator_tpu``
+(the JAX package, which stays the reference) that it covers so far, with
+every Pallas kernel replaced by a hand-written CUDA kernel for Hopper
+(``csrc/``). The port imports neither JAX nor the JAX package.
 
     import rgb_proprioceptive_pose_estimator_tpu_torch as rppt
 
-    cfg = rppt.preset("pr3")
-    pred = rppt.Predictor(cfg, ckpt_path="pr3.pt")      # runs on cuda
+    cfg = rppt.preset("pr3").override(**{"data.path": "lift.hdf5"})
+    out = rppt.train(cfg)                               # runs on cuda
+    pred = rppt.Predictor(cfg, ckpt_path=out["ckpt_path"])
     pos, quat = pred({"images": {"agentview": img}, "proprio": state})
 """
 
@@ -21,7 +22,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
     TrainConfig,
     preset,
 )
-from rgb_proprioceptive_pose_estimator_tpu_torch.api import Predictor, predict
+from rgb_proprioceptive_pose_estimator_tpu_torch.api import Predictor, predict, train
 
 __all__ = [
     "Config",
@@ -33,4 +34,5 @@ __all__ = [
     "PRESETS",
     "Predictor",
     "predict",
+    "train",
 ]

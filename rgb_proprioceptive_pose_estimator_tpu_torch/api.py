@@ -1,7 +1,8 @@
-"""Public serving API of the port: ``Predictor`` and ``predict``
-(counterparts of the JAX package's ``api.Predictor``/``api.predict``).
+"""Public API of the port: ``train``, ``Predictor`` and ``predict``
+(counterparts of the JAX package's ``api.train``/``api.Predictor``/
+``api.predict``). Each runs on CUDA unless asked for the CPU.
 
-Training and evaluation come in a later slice.
+``evaluate`` and the CLI come in a later slice (ROADMAP.md queue A, item 6).
 """
 
 from __future__ import annotations
@@ -25,6 +26,19 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
             "the port runs on CUDA by default and torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+def train(cfg: Config, device: Union[str, torch.device, None] = None
+          ) -> Dict[str, Any]:
+    """Train per config (engine/loop.fit) on ``device`` (CUDA by default).
+    Returns {"model", "metrics", "ckpt_path"}: the trained model, the last
+    logged train metrics with the last eval's under ``eval_*``, and the
+    final checkpoint file, which ``Predictor(cfg, ckpt_path=...)`` serves."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import fit
+
+    out = fit(cfg, resolve_device(device))
+    return {"model": out["model"], "metrics": out["metrics"],
+            "ckpt_path": out["ckpt_path"]}
 
 
 class Predictor:

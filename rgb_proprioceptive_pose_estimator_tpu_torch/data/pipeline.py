@@ -1,0 +1,284 @@
+"""Host -> device input pipeline (counterpart of the JAX package's
+``data/pipeline.py``).
+
+Stages:
+  1. checkpointable index sampler (seeded per-epoch permutation),
+  2. worker threads building uint8 numpy batches (decode/crop/flip/jitter;
+     cv2/numpy release the GIL, or the native C++ engine),
+  3. in-order emission (deterministic regardless of worker count),
+  4. copies into pinned host buffers, then ``non_blocking`` copies to the
+     model's device on the current stream, ``prefetch`` batches ahead (the
+     host queues them behind the running step and does not wait);
+     normalization happens on the device in the model.
+
+The sampler and the per-batch seeds are the JAX package's, so for one
+config and seed the batches are bit-identical. Fixed batch size; partial
+batches are dropped. The sampler state {seed, consumed} goes into
+checkpoints. One process, one device: the JAX package's multi-host slices
+and sharded device cache are not ported.
+"""
+
+from __future__ import annotations
+
+import collections
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config, DataConfig
+from rgb_proprioceptive_pose_estimator_tpu_torch.data.synthetic import (
+    SyntheticProprioDataset,
+)
+
+
+def build_dataset(cfg: Config, split: str = "all"):
+    """Construct the dataset named by cfg.data.source.
+
+    split: "all" | "train" | "val" -- "train"/"val" are only distinct when
+    cfg.data.val_fraction > 0 (hdf5 splits by demo; synthetic by index) or
+    cfg.data.val_path is set (hdf5: val = ALL of the separate file(s),
+    train = ALL of data.path)."""
+    d, m = cfg.data, cfg.model
+    if d.source == "synthetic":
+        return SyntheticProprioDataset(
+            size=d.synthetic_size,
+            proprio_dim=m.proprio_dim,
+            noise=d.synthetic_noise,
+            seed=d.seed,
+            temporal_frames=m.temporal_frames,
+            split=split,
+            val_fraction=d.val_fraction,
+        )
+    if d.source == "hdf5":
+        if not d.path:
+            raise ValueError("cfg.data.path required for hdf5 source")
+        if d.device_cache or d.augment_device:
+            raise NotImplementedError(
+                "data.device_cache and data.augment_device: the port "
+                "augments on the host so far (ROADMAP.md queue A, item 9)")
+        # the HDF5 store imports h5py where it opens a file; a host that
+        # trains from memory never loads it
+        from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (
+            HDF5DemoStore,
+        )
+
+        # data.val_path: the val split is a SEPARATE held-out file
+        # collection (whole file(s), no fraction split on either side);
+        # max_demos / filter_key select the TRAIN set only
+        path = d.path
+        val_fraction = d.val_fraction
+        max_demos = d.max_demos
+        filter_key = d.filter_key
+        if d.val_path:
+            if split == "val":
+                path = d.val_path
+                max_demos = 0
+                filter_key = ""
+            split, val_fraction = "all", 0.0
+        return HDF5DemoStore(
+            path,
+            split=split,
+            val_fraction=val_fraction,
+            split_seed=d.split_seed,
+            max_demos=max_demos,
+            filter_key=filter_key,
+            cameras=m.cameras if m.backbone != "none" else (),
+            image_size=m.image_size,
+            temporal_frames=m.temporal_frames,
+            image_key_format=d.image_key_format,
+            proprio_key=d.proprio_key,
+            target_key=d.target_key,
+            target_lookahead=d.target_lookahead,
+            use_proprio=m.use_proprio,
+            use_native=d.use_native,
+            device_aug_hw=None,
+            crop_scale=d.crop_scale,
+            crop_ratio=d.crop_ratio,
+            hflip_prob=d.hflip_prob,
+            hflip_pose_mirror=d.hflip_pose_mirror,
+            hflip_mirror_axis=d.hflip_mirror_axis,
+            hflip_mirror_center=d.hflip_mirror_center,
+            jitter_brightness=d.jitter_brightness,
+            jitter_contrast=d.jitter_contrast,
+            jitter_saturation=d.jitter_saturation,
+            jitter_hue=d.jitter_hue,
+            jitter_prob=d.jitter_prob,
+            cache_images=None,
+        )
+    raise ValueError(f"unknown data source {d.source!r}")
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    """numpy leaves -> tensors on device; on CUDA through pinned host
+    memory with a non_blocking copy on the current stream."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    t = torch.from_numpy(np.ascontiguousarray(tree))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostPipeline:
+    """Infinite (train) or single-epoch (eval) iterator of device batches:
+    dicts of tensors on ``device`` shaped as the dataset's ``get_batch``
+    returns them."""
+
+    def __init__(self, dataset, cfg: DataConfig,
+                 device: Union[str, torch.device] = "cpu",
+                 train: bool = True, batch_size: Optional[int] = None):
+        self.dataset = dataset
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.train = train
+        self.batch_size = batch_size or cfg.batch_size
+        if len(dataset) < self.batch_size:
+            raise ValueError(
+                f"dataset size {len(dataset)} < batch size {self.batch_size}")
+        self.batches_per_epoch = len(dataset) // self.batch_size
+        self.augment = bool(cfg.augment) and train
+
+        self._consumed = 0            # global batch counter (checkpoint state)
+        self._scheduled = 0
+        self._perm_cache: Dict[int, np.ndarray] = {}
+        self._pool: Optional[ThreadPoolExecutor] = None
+        if cfg.num_workers > 0:
+            self._pool = ThreadPoolExecutor(
+                max_workers=cfg.num_workers,
+                thread_name_prefix="rppe-data")
+        self._inflight: "collections.deque[Future]" = collections.deque()
+        self._device_q: "collections.deque" = collections.deque()
+        self._max_inflight = max(cfg.num_workers * 2, 1)
+        self._max_device = max(cfg.prefetch, 1)
+
+    # -- sampler (the JAX package's, exactly) ----------------------------------
+
+    def _epoch_perm(self, epoch: int) -> np.ndarray:
+        """Per-epoch permutation, memoized; a couple of epochs are kept
+        (in-flight batches straddle at most two)."""
+        perm = self._perm_cache.get(epoch)
+        if perm is None:
+            if self.train and self.cfg.shuffle:
+                perm = np.random.RandomState(
+                    (self.cfg.seed + epoch) % (2 ** 31 - 1)
+                ).permutation(len(self.dataset))
+            else:
+                perm = np.arange(len(self.dataset))
+            self._perm_cache = {k: v for k, v in self._perm_cache.items()
+                                if k >= epoch - 1}
+            self._perm_cache[epoch] = perm
+        return perm
+
+    def _indices_for(self, global_batch: int) -> np.ndarray:
+        epoch, pos = divmod(global_batch, self.batches_per_epoch)
+        perm = self._epoch_perm(epoch)
+        lo = pos * self.batch_size
+        return perm[lo:lo + self.batch_size]
+
+    def _build(self, global_batch: int) -> Dict[str, Any]:
+        idx = self._indices_for(global_batch)
+        seed = (self.cfg.seed * 7_919 + global_batch) % (2 ** 31 - 1)
+        return self.dataset.get_batch(idx, augment=self.augment, seed=seed)
+
+    # -- pipeline mechanics ----------------------------------------------------
+
+    def _schedule(self, limit: Optional[int] = None) -> None:
+        while len(self._inflight) < self._max_inflight:
+            if limit is not None and self._scheduled >= limit:
+                return
+            gb = self._scheduled
+            self._scheduled += 1
+            if self._pool is not None:
+                self._inflight.append(self._pool.submit(self._build, gb))
+            else:
+                f: Future = Future()
+                f.set_result(self._build(gb))
+                self._inflight.append(f)
+
+    def _fill_device_q(self, limit: Optional[int] = None) -> None:
+        self._schedule(limit)
+        while len(self._device_q) < self._max_device and self._inflight:
+            np_batch = self._inflight.popleft().result()
+            self._device_q.append(_to_device(np_batch, self.device))
+            self._schedule(limit)
+
+    def queue_depth(self) -> int:
+        """Host-side ready batches: the canary for a starving device."""
+        return sum(f.done() for f in self._inflight) + len(self._device_q)
+
+    # -- iteration -------------------------------------------------------------
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        """Infinite stream of device batches (training)."""
+        self._fill_device_q()
+        self._consumed += 1
+        return self._device_q.popleft()
+
+    def epoch(self, max_batches: int = 0, start: int = 0) -> Iterator:
+        """One deterministic pass over the dataset (evaluation), optionally
+        capped at max_batches, which bounds scheduling too. ``start``
+        rotates a partial pass to begin at batch ``start %
+        batches_per_epoch``, wrapping around the split; full passes ignore
+        it."""
+        if self.train:
+            raise RuntimeError(
+                "epoch() is for eval pipelines (train=False); a training "
+                "pipeline's sampler state would be corrupted")
+        n = self.batches_per_epoch
+        limit = n
+        if max_batches:
+            limit = min(limit, max_batches)
+        base = (start % n) if (start and limit < n) else 0
+        self._reset(base)
+        try:
+            for _ in range(limit):
+                self._fill_device_q(base + limit)
+                yield self._device_q.popleft()
+        finally:
+            self._reset()
+
+    def _reset(self, position: Optional[int] = None) -> None:
+        for f in self._inflight:
+            f.cancel()
+        self._inflight.clear()
+        self._device_q.clear()
+        self._scheduled = self._consumed if position is None else position
+
+    # -- checkpointable state ---------------------------------------------------
+
+    STATE_FORMAT = 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"format": self.STATE_FORMAT, "consumed": int(self._consumed),
+                "seed": int(self.cfg.seed),
+                "batch_size": int(self.batch_size), "n_shards": 1}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        fmt = int(state.get("format", 1))
+        if fmt != self.STATE_FORMAT:
+            raise ValueError(
+                f"checkpoint iterator state format {fmt} != supported "
+                f"{self.STATE_FORMAT}")
+        if int(state.get("batch_size", self.batch_size)) != self.batch_size:
+            raise ValueError("cannot resume with a different batch size")
+        saved_seed = int(state.get("seed", self.cfg.seed))
+        if saved_seed != self.cfg.seed:
+            raise ValueError(
+                f"cannot resume: checkpoint sampler seed {saved_seed} != "
+                f"config data.seed {self.cfg.seed}")
+        if int(state.get("n_shards", 1)) != 1:
+            raise ValueError("cannot resume a sharded-cache sampler state "
+                             "in the port (one device)")
+        self._consumed = int(state["consumed"])
+        self._reset()
+
+    def close(self) -> None:
+        self._reset()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None

@@ -1,0 +1,250 @@
+"""The training driver on one device (counterpart of the JAX package's
+``engine/loop.py``).
+
+``fit(cfg, device)`` builds the datasets and a fresh state and hands them
+to ``train_on``, which does everything after: proprio statistics from the
+train split, the train and eval pipelines, the steps in calls of
+``train.steps_per_call`` (a plain loop with the JAX package's cadence
+checks), log, eval and checkpoint cadences, save on SIGTERM, and the final
+checkpoint.
+
+Not in the port yet, and refused rather than ignored
+(``check_fit_supported``): resuming from an existing checkpoint and
+best-metric checkpoints (ROADMAP.md queue A, item 5); warm starts, early
+stopping, EMA and the other training extras (item 9); more than one
+device (item 8).
+"""
+
+from __future__ import annotations
+
+import signal
+import threading
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
+from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+    HostPipeline,
+    build_dataset,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+    TrainState,
+    create_state,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+    eval_step,
+    train_step,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+from rgb_proprioceptive_pose_estimator_tpu_torch.utils.metrics import MetricsLogger
+
+
+def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
+                      cfg: Config, max_batches: int = 0,
+                      start: int = 0) -> Dict[str, float]:
+    """Average eval metrics over (up to) one epoch; ``start`` rotates
+    partial passes across the split (HostPipeline.epoch)."""
+    sums: Dict[str, float] = {}
+    n = 0
+    for batch in pipeline.epoch(max_batches=max_batches, start=start):
+        for k, v in eval_step(model, batch, cfg.train).items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        n += 1
+    return {k: v / max(n, 1) for k, v in sums.items()}
+
+
+def check_fit_supported(cfg: Config) -> None:
+    """Raise NotImplementedError, naming its ROADMAP.md item, for each
+    option of the JAX package's fit that the port lacks."""
+    t, m, d = cfg.train, cfg.model, cfg.data
+    if cfg.dist.num_devices > 1:
+        raise NotImplementedError(
+            f"dist.num_devices={cfg.dist.num_devices}: the port trains on "
+            "one device (data parallelism comes with ROADMAP.md queue A, "
+            "item 8)")
+    later = {
+        "train.ckpt_best_metric": (bool(t.ckpt_best_metric), 5),
+        "train.init_from": (bool(t.init_from), 9),
+        "train.init_from_torch": (bool(t.init_from_torch), 9),
+        "train.early_stop_patience > 0": (t.early_stop_patience > 0, 9),
+        "train.profile_dir": (bool(t.profile_dir), 9),
+        "train.debug_nans": (t.debug_nans, 9),
+        "train.ema_decay > 0": (t.ema_decay > 0, 9),
+        "train.ema_bn_recal_batches > 0": (t.ema_bn_recal_batches > 0, 9),
+        "train.grad_accum > 1": (t.grad_accum > 1, 9),
+        "train.flat_optimizer": (t.flat_optimizer, 9),
+        "model.freeze_backbone": (m.freeze_backbone, 9),
+        "data.device_cache": (d.device_cache, 9),
+        "data.augment_device": (d.augment_device, 9),
+    }
+    for name, (used, item) in later.items():
+        if used:
+            raise NotImplementedError(
+                f"{name}: not in the port yet (ROADMAP.md queue A, item "
+                f"{item})")
+
+
+def fit(cfg: Config, device: torch.device) -> Dict[str, Any]:
+    """Train per cfg on ``device`` from freshly initialized weights
+    (seed train.seed); returns train_on's result."""
+    check_fit_supported(cfg)
+    has_val = cfg.data.val_fraction > 0 or bool(cfg.data.val_path)
+    dataset = build_dataset(cfg, split="train" if has_val else "all")
+    eval_ds = build_dataset(cfg, split="val") if has_val else dataset
+    state = create_state(cfg, device)
+    return train_on(cfg, state, dataset, eval_ds)
+
+
+def _check_cadence(cfg: Config) -> int:
+    """train.steps_per_call, after the JAX package's multiple-of checks."""
+    tcfg = cfg.train
+    spc = max(tcfg.steps_per_call, 1)
+    if spc > 1:
+        for name, v in (("log_every", tcfg.log_every),
+                        ("eval_every", tcfg.eval_every),
+                        ("ckpt_every", tcfg.ckpt_every),
+                        ("steps", tcfg.steps)):
+            if v and v % spc != 0:
+                raise ValueError(
+                    f"train.{name}={v} must be a multiple of "
+                    f"train.steps_per_call={spc}")
+    return spc
+
+
+def _check_no_checkpoint(cfg: Config) -> None:
+    tcfg = cfg.train
+    latest = checkpoint.steps(tcfg.ckpt_dir)
+    if tcfg.resume not in ("auto", "none") and not latest:
+        raise FileNotFoundError(
+            f"train.resume={tcfg.resume!r} but {tcfg.ckpt_dir} contains no "
+            "checkpoint")
+    if latest and tcfg.resume == "none":
+        raise ValueError(
+            f"train.resume='none' but {tcfg.ckpt_dir} already contains a "
+            f"checkpoint at step {latest[-1]}; use a fresh ckpt_dir or "
+            "resume='auto'")
+    if latest:
+        raise NotImplementedError(
+            f"{tcfg.ckpt_dir} holds a checkpoint at step {latest[-1]}: "
+            "resuming is not in the port yet (ROADMAP.md queue A, item 5); "
+            "use a fresh train.ckpt_dir")
+
+
+def train_on(cfg: Config, state: TrainState, dataset, eval_ds
+             ) -> Dict[str, Any]:
+    """Train ``state`` on ``dataset`` (any object with the datasets'
+    ``__len__``, ``get_batch`` and ``proprio_stats``) for train.steps,
+    evaluating on ``eval_ds``. Returns {state, model, metrics, ckpt_dir,
+    ckpt_path}: the last logged train metrics with the last eval's under
+    ``eval_*``, and the final checkpoint's path."""
+    check_fit_supported(cfg)
+    tcfg = cfg.train
+    spc = _check_cadence(cfg)
+    _check_no_checkpoint(cfg)
+    model = state.model
+    device = next(model.parameters()).device
+
+    if cfg.model.use_proprio and cfg.model.proprio_normalize:
+        # train-split obs-normalization statistics into the model buffers
+        mean, std = dataset.proprio_stats()
+        with torch.no_grad():
+            model.proprio.proprio_mean.copy_(torch.from_numpy(mean))
+            model.proprio.proprio_std.copy_(torch.from_numpy(std))
+
+    train_pipe = HostPipeline(dataset, cfg.data, device=device, train=True)
+    eval_bs = min(cfg.data.batch_size, len(eval_ds))
+    if eval_bs == 0:
+        raise ValueError("the eval split is empty; increase "
+                         "data.val_fraction")
+    eval_pipe = HostPipeline(eval_ds, cfg.data, device=device, train=False,
+                             batch_size=eval_bs)
+    schedule = state.optimizer.schedule
+    metrics_path = tcfg.metrics_path or f"{tcfg.ckpt_dir}/metrics.jsonl"
+    logger = MetricsLogger(metrics_path, tensorboard=tcfg.tensorboard,
+                           tb_dir=tcfg.ckpt_dir)
+
+    def save(step: int) -> str:
+        return checkpoint.save_step(
+            tcfg.ckpt_dir, step, tcfg.ckpt_keep, cfg, model.state_dict(),
+            {"step": state.step, "optimizer": state.optimizer.state_dict(),
+             "pipeline": train_pipe.state_dict()})
+
+    # save on SIGTERM (train.save_on_signal): finish the step in flight,
+    # checkpoint it and return; only from the main thread, where Python
+    # allows signal handlers
+    preempt_signum: Optional[int] = None
+
+    def _on_sigterm(signum, frame):
+        nonlocal preempt_signum
+        preempt_signum = signum
+
+    sig_installed = (tcfg.save_on_signal and threading.current_thread()
+                     is threading.main_thread())
+    prev_sigterm = (signal.signal(signal.SIGTERM, _on_sigterm)
+                    if sig_installed else None)
+
+    last_metrics: Dict[str, float] = {}
+    last_saved: Optional[int] = None
+    ckpt_path: Optional[str] = None
+    final_step = tcfg.steps
+    log_anchor = 0
+    t_log = time.perf_counter()
+    try:
+        for step_i in range(0, tcfg.steps, spc):
+            for _ in range(spc):
+                m = train_step(state, next(train_pipe), tcfg)
+            step1 = step_i + spc
+            if step_i == 0 and tcfg.log_every > 1:
+                # keep the first call (kernel builds, cuDNN plans) out of
+                # the first throughput window
+                float(m["loss"])
+                t_log = time.perf_counter()
+                log_anchor = step1
+            if step1 % tcfg.log_every == 0 or step1 == tcfg.steps:
+                vals = {k: float(v) for k, v in m.items()}   # syncs
+                now = time.perf_counter()
+                dt = now - t_log
+                t_log = now
+                imgs = cfg.data.batch_size * max(step1 - log_anchor, 1)
+                log_anchor = step1
+                last_metrics = dict(vals)
+                last_metrics.update({
+                    "images_per_sec": imgs / dt,
+                    "images_per_sec_per_chip": imgs / dt,
+                    "host_queue_depth": train_pipe.queue_depth(),
+                    "lr": float(schedule(step1)),
+                })
+                logger.log(step1, last_metrics, prefix="train/")
+            if tcfg.eval_every and (step1 % tcfg.eval_every == 0
+                                    or step1 == tcfg.steps):
+                eval_start = (step1 // tcfg.eval_every) * max(tcfg.eval_steps,
+                                                              0)
+                em = evaluate_pipeline(model, eval_pipe, cfg,
+                                       max_batches=tcfg.eval_steps,
+                                       start=eval_start)
+                logger.log(step1, em, prefix="eval/")
+                last_metrics.update({f"eval_{k}": v for k, v in em.items()})
+                # eval time is not train throughput
+                t_log = time.perf_counter()
+                log_anchor = step1
+            if tcfg.ckpt_every and step1 % tcfg.ckpt_every == 0:
+                ckpt_path = save(step1)
+                last_saved = step1
+            if preempt_signum is not None:
+                final_step = step1
+                last_metrics["preempted_at"] = float(step1)
+                logger.log(step1, {"preempted_at": float(step1)},
+                           prefix="train/")
+                break
+        if final_step > 0 and last_saved != final_step:
+            ckpt_path = save(final_step)
+        logger.close()
+        train_pipe.close()
+        eval_pipe.close()
+    finally:
+        if sig_installed:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+    return {"state": state, "model": model, "metrics": last_metrics,
+            "ckpt_dir": tcfg.ckpt_dir, "ckpt_path": ckpt_path}

@@ -1,0 +1,79 @@
+"""Training state (counterpart of the JAX package's ``engine/state.py``):
+the model, its optimizer, the step count and a ``torch.Generator``.
+
+The JAX package threads one immutable pytree through a compiled step; here
+the model and optimizer are updated in place by each step.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
+from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+    Optimizer,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
+    BatchNormAct,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import PoseEstimator
+
+# flax's lecun_normal draws from a normal truncated at 2 std and rescales
+# by this constant so that the variance stays 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclass
+class TrainState:
+    model: PoseEstimator
+    optimizer: Optimizer
+    step: int
+    generator: torch.Generator     # host-side randomness of the run
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initializers, drawn from ``generator``:
+    He-normal (fan out) convolutions, LeCun truncated-normal dense kernels,
+    zero biases, BatchNorm scale 1 and shift 0, and identity running and
+    proprio statistics. (The draws differ from JAX's: tests hand both
+    packages the same weights instead.)"""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                                        nonlinearity="relu",
+                                        generator=generator)
+            elif isinstance(mod, nn.Linear):
+                std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
+                nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+                nn.init.zeros_(mod.bias)
+            elif isinstance(mod, BatchNormAct):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+
+
+def create_state(cfg: Config, device: torch.device,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> TrainState:
+    """A fresh state on ``device``: weights from ``state_dict`` (strict) or
+    from the initializers with seed ``train.seed``, and an optimizer at
+    update 0."""
+    seed = cfg.train.seed
+    model = PoseEstimator(cfg.model)
+    if state_dict is None:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    model.to(device)
+    return TrainState(model=model,
+                      optimizer=Optimizer(cfg.train, model.parameters()),
+                      step=0,
+                      generator=torch.Generator().manual_seed(seed ^ 0xA46))

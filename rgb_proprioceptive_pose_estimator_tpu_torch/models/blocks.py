@@ -1,5 +1,5 @@
 """Conv + BatchNorm + ReLU building blocks (counterpart of the JAX
-package's ``models/blocks.py``), eval mode only.
+package's ``models/blocks.py``), in train and eval mode.
 
 Tensors inside the encoders are NCHW in ``channels_last`` memory, the
 JAX package's NHWC layout seen through torch's dimension order: with
@@ -20,6 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused import scale_bias_relu
+from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused_bn import bn_train
+
+BN_STATS = ("reduce", "matmul", "pallas")
 
 
 class Dense(nn.Linear):
@@ -37,37 +40,83 @@ class Dense(nn.Linear):
 
 
 class BatchNormAct(nn.Module):
-    """Eval-mode BatchNorm with running statistics, folded into one
-    per-channel ``scale * x + bias`` in f32, then ReLU if ``act``.
+    """BatchNorm with torch semantics, then ReLU if ``act``.
 
-    With ``act`` the epilogue is the ``scale_bias_relu`` kernel (output in
-    x's dtype, which is the compute dtype); without it, plain torch cast to
-    ``compute_dtype``."""
+    Eval mode folds the running statistics into one per-channel
+    ``scale * x + bias`` in f32. Train mode normalizes by the batch
+    statistics (biased variance), computed as ``stats_impl`` says:
+
+    - "reduce": ``torch.mean`` reductions; the folded scale and bias then
+      go to the ``scale_bias_relu`` kernel (with ``act``), whose backward
+      is a kernel too; autograd reaches x through the statistics as well.
+    - "matmul" / "pallas": ``ops/fused_bn.bn_train`` with its statistics
+      from plain contractions or from the ``channel_stats`` kernel, and
+      its closed-form backward; then plain ReLU.
+
+    Train mode also updates the running statistics, outside autograd, as
+    torch does: ``running = momentum * running + (1 - momentum) * batch``
+    with the flax ``momentum`` 0.9 (torch's 0.1) and the unbiased
+    ``n / (n - 1)`` variance.
+
+    With ``act`` the eval epilogue is the ``scale_bias_relu`` kernel
+    (output in x's dtype, which is the compute dtype); without it, plain
+    torch cast to ``compute_dtype``."""
 
     def __init__(self, features: int, eps: float = 1e-5, act: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 stats_impl: str = "reduce", momentum: float = 0.9):
         super().__init__()
+        if stats_impl not in BN_STATS:
+            raise ValueError(f"stats_impl must be one of {BN_STATS}, got "
+                             f"{stats_impl!r}")
         self.eps = eps
         self.act = act
         self.compute_dtype = compute_dtype
+        self.stats_impl = stats_impl
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNormAct runs in eval mode only in this port; batch "
-                "statistics and their kernels come with the training slice "
-                "(call .eval())")
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        bias = self.bias - self.running_mean * scale
+    def _affine(self, x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
         if self.act:
             return scale_bias_relu(x, scale, bias)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         y = x.float() * scale.view(shape) + bias.view(shape)
         return y.to(self.compute_dtype)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                        n: int) -> None:
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            m, m_t = self.momentum, 1.0 - self.momentum
+            self.running_mean.copy_(m * self.running_mean + m_t * mean)
+            self.running_var.copy_(m * self.running_var + m_t * unbiased)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            bias = self.bias - self.running_mean * scale
+            return self._affine(x, scale, bias)
+        n = x.numel() // x.shape[1]
+        if self.stats_impl == "reduce":
+            dims = tuple(d for d in range(x.ndim) if d != 1)
+            xf = x.float()
+            mean = torch.mean(xf, dim=dims)
+            var = torch.clamp_min(torch.mean(torch.square(xf), dim=dims)
+                                  - torch.square(mean), 0.0)
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            y = self._affine(x, scale, self.bias - mean * scale)
+        else:
+            y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
+                                    self.stats_impl)
+            if self.act:
+                y = torch.relu(y)
+            y = y.to(self.compute_dtype)
+        self._update_running(mean.detach(), var.detach(), n)
+        return y
 
 
 class ConvBNReLU(nn.Module):
@@ -79,13 +128,15 @@ class ConvBNReLU(nn.Module):
                  stride: Tuple[int, int] = (1, 1),
                  padding: Tuple[int, int] = (1, 1), act: bool = True,
                  eps: float = 1e-5,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 bn_stats: str = "reduce"):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.conv = nn.Conv2d(in_features, features, kernel, stride, padding,
                               bias=False)
         self.bn = BatchNormAct(features, eps=eps, act=act,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype,
+                               stats_impl=bn_stats)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv

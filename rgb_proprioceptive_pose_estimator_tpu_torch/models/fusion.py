@@ -1,5 +1,5 @@
 """Late-fusion pose estimator (counterpart of the JAX package's
-``models/fusion.py``), eval mode.
+``models/fusion.py``), in train and eval mode.
 
 Input batch dict, tensors on the model's device:
     batch["images"][camera] : uint8 (B, H, W, 3) or (B, T, H, W, 3)
@@ -12,9 +12,10 @@ the all-zero feature vector and its encoder does not run.
 
 Output: (pos (B, 3) float32, quat (B, 4) float32 unit-normalized).
 
-This slice covers the ResNet-18 backbone, T frames stacked along
-channels, and the quaternion head; the other backbones, the LSTM temporal
-mode and the rot6d head come in later slices and raise here.
+The port covers the ResNet-18 backbone, T frames stacked along channels,
+and the quaternion head; the other backbones, the LSTM temporal mode, the
+rot6d head and training with camera or proprio dropout come in later
+slices (ROADMAP.md queue A) and raise here.
 """
 
 from __future__ import annotations
@@ -51,16 +52,31 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for model options this slice lacks."""
     if cfg.backbone != "resnet18":
         raise NotImplementedError(
-            f"model.backbone={cfg.backbone!r}: the port serves resnet18 so "
-            "far; the other backbones come in a later slice")
+            f"model.backbone={cfg.backbone!r}: the port runs resnet18 so "
+            "far; the other backbones come in a later slice (ROADMAP.md "
+            "queue A, items 7 and 10)")
     if cfg.rot_rep != "quat":
         raise NotImplementedError(
             f"model.rot_rep={cfg.rot_rep!r}: the port has the quat head so "
-            "far; rot6d comes with the rest of pose_math in a later slice")
+            "far; rot6d comes in a later slice (ROADMAP.md queue A, item 8)")
     if cfg.temporal_frames > 1 and cfg.temporal_mode == "lstm":
         raise NotImplementedError(
             "model.temporal_mode='lstm': the port stacks frames along "
-            "channels so far; the LSTM mode comes in a later slice")
+            "channels so far; the LSTM mode comes in a later slice "
+            "(ROADMAP.md queue A, item 8)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for training options the port lacks (each
+    is the identity in eval mode)."""
+    if cfg.camera_dropout > 0:
+        raise NotImplementedError(
+            "model.camera_dropout > 0 in training: camera dropout comes in a "
+            "later slice (ROADMAP.md queue A, item 8)")
+    if cfg.proprio_dropout > 0:
+        raise NotImplementedError(
+            "model.proprio_dropout > 0 in training: proprio dropout comes in "
+            "a later slice (ROADMAP.md queue A, item 9)")
 
 
 class PoseEstimator(nn.Module):
@@ -77,7 +93,8 @@ class PoseEstimator(nn.Module):
         for cam in cfg.cameras:
             self.add_module(f"encoder_{cam}", ResNet18(
                 features=cfg.image_features,
-                in_channels=3 * cfg.temporal_frames, compute_dtype=dtype))
+                in_channels=3 * cfg.temporal_frames, compute_dtype=dtype,
+                bn_stats=cfg.bn_stats))
         d = cfg.image_features * len(cfg.cameras)
         if cfg.use_proprio:
             self.proprio = ProprioMLP(
@@ -92,11 +109,9 @@ class PoseEstimator(nn.Module):
 
     def forward(self, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "PoseEstimator runs in eval mode only in this port; training "
-                "comes in a later slice (call .eval())")
         cfg = self.cfg
+        if self.training:
+            check_trainable(cfg)
         images = batch["images"]
         present = [c for c in cfg.cameras if c in images]
         if not present and not cfg.use_proprio:

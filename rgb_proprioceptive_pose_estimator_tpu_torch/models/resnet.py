@@ -25,18 +25,22 @@ class BasicBlock(nn.Module):
     """3x3 -> 3x3, with a 1x1-conv shortcut where the shape changes."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 bn_stats: str = "reduce"):
         super().__init__()
         # symmetric pad 1, torch's convention (JAX pads explicitly to match)
         self.conv1 = ConvBNReLU(in_features, features, (3, 3),
                                 (stride, stride), (1, 1),
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype,
+                                bn_stats=bn_stats)
         self.conv2 = ConvBNReLU(features, features, (3, 3), (1, 1), (1, 1),
-                                act=False, compute_dtype=compute_dtype)
+                                act=False, compute_dtype=compute_dtype,
+                                bn_stats=bn_stats)
         if stride != 1 or in_features != features:
             self.downsample = ConvBNReLU(in_features, features, (1, 1),
                                          (stride, stride), (0, 0), act=False,
-                                         compute_dtype=compute_dtype)
+                                         compute_dtype=compute_dtype,
+                                         bn_stats=bn_stats)
         else:
             self.downsample = None
 
@@ -51,10 +55,11 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  features: int = 512, in_channels: int = 3,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 bn_stats: str = "reduce"):
         super().__init__()
         self.stem = ConvBNReLU(in_channels, 64, (7, 7), (2, 2), (3, 3),
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, bn_stats=bn_stats)
         width_in = 64
         for stage, n_blocks in enumerate(stage_sizes):
             width = 64 * (2 ** stage)
@@ -63,7 +68,8 @@ class ResNet(nn.Module):
                 self.add_module(
                     f"stage{stage + 1}_block{i}",
                     BasicBlock(width_in, width, stride,
-                               compute_dtype=compute_dtype))
+                               compute_dtype=compute_dtype,
+                               bn_stats=bn_stats))
                 width_in = width
         self.block_names = [f"stage{s + 1}_block{i}"
                             for s, n in enumerate(stage_sizes)
@@ -84,6 +90,7 @@ class ResNet(nn.Module):
 
 
 def ResNet18(features: int = 512, in_channels: int = 3,
-             compute_dtype: torch.dtype = torch.float32) -> ResNet:
+             compute_dtype: torch.dtype = torch.float32,
+             bn_stats: str = "reduce") -> ResNet:
     return ResNet((2, 2, 2, 2), features=features, in_channels=in_channels,
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype, bn_stats=bn_stats)

@@ -4,13 +4,17 @@ their plain PyTorch versions.
 - ``normalize_u8``: uint8 image -> f32/bf16 ``x * (1/(255 std)) - mean/std``
   in one pass (the JAX package's ``pallas_normalize_u8``).
 - ``scale_bias_relu``: ``relu(x * scale + bias)`` per channel, the
-  eval-mode BatchNorm + ReLU epilogue (the forward of the JAX package's
-  ``scale_bias_relu``).
+  BatchNorm + ReLU epilogue (the JAX package's ``scale_bias_relu``), an
+  autograd Function whose backward is the kernel
+  ``scale_bias_relu_backward`` (the JAX package's ``_sbr_bwd``).
+- ``channel_stats``: per-channel f32 (sum x, sum x^2) in one read of x,
+  the BatchNorm training statistics (the JAX package's ``channel_stats``).
 
 A wrapper checks its inputs the same way on every device. A tensor on the
 CPU then goes to the plain version (``*_reference``); a CUDA tensor goes
 to the kernel, or the wrapper raises: it never falls back. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+counts its kernel launches in ``<wrapper>.launches``. The two reductions
+are deterministic: the same input gives bitwise-equal sums.
 """
 
 from __future__ import annotations
@@ -39,6 +43,13 @@ def _lib() -> ctypes.CDLL:
     lib.rppe_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
                                          i32, ptr]
     lib.rppe_scale_bias_relu.restype = i32
+    lib.rppe_channel_stats.argtypes = [ptr, i64, i32, i32, i32, ptr, ptr,
+                                       ptr, i32, ptr]
+    lib.rppe_channel_stats.restype = i32
+    lib.rppe_scale_bias_relu_backward.argtypes = [ptr, ptr, ptr, ptr, i64,
+                                                  i32, i32, i32, ptr, ptr,
+                                                  ptr, ptr, i32, ptr]
+    lib.rppe_scale_bias_relu_backward.restype = i32
     lib.rppe_error_string.argtypes = [i32]
     lib.rppe_error_string.restype = ctypes.c_char_p
     return lib
@@ -59,6 +70,68 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got one on "
                          f"{t.device}")
+
+
+def _check_channels_innermost(x: torch.Tensor, name: str) -> None:
+    """x must be 4-D NCHW in channels_last memory or 2-D (M, C)
+    contiguous, f32 or bf16: channels innermost, C = x.shape[1]."""
+    if x.dtype not in _FLOAT_TYPES:
+        raise TypeError(f"{name} expects float32 or bfloat16 x, got {x.dtype}")
+    if x.ndim == 4:
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{name} expects a 4-D x in channels_last "
+                             "memory (channels innermost)")
+    elif x.ndim == 2:
+        if not x.is_contiguous():
+            raise ValueError(f"{name} expects a contiguous 2-D x")
+    else:
+        raise ValueError(f"{name} expects a 4-D or 2-D x, got {x.ndim}-D")
+
+
+def _same_layout(x: torch.Tensor, g: torch.Tensor) -> bool:
+    """g is laid out as the channels-innermost x is."""
+    fmt = torch.channels_last if x.ndim == 4 else torch.contiguous_format
+    return g.shape == x.shape and g.is_contiguous(memory_format=fmt)
+
+
+def _check_channel_vectors(x: torch.Tensor, name: str,
+                           *vectors: torch.Tensor) -> None:
+    c = x.shape[1]
+    for v in vectors:
+        if v.dtype != torch.float32:
+            raise TypeError(f"{name} expects float32 scale and bias")
+        if tuple(v.shape) != (c,):
+            raise ValueError(f"{name}: scale and bias must be ({c},), got "
+                             f"{tuple(v.shape)}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} expects contiguous scale and bias")
+        if v.device != x.device:
+            raise ValueError(f"{name}: x, scale and bias must be on one "
+                             "device")
+
+
+def channel_rows(x: torch.Tensor) -> torch.Tensor:
+    """The (M, C) view of x with channels at dim 1: no copy when channels
+    are innermost (NCHW in channels_last memory, or 2-D contiguous)."""
+    if x.ndim == 4:
+        return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+    return x
+
+
+# rows of threads and channels of one reduction block (kRedY, kRedX in
+# csrc/fused.cu), and the least rows each thread sums
+_RED_ROWS, _RED_CHANNELS, _MIN_ROWS_PER_THREAD = 8, 32, 16
+_RED_BLOCKS_PER_SM = 8
+
+
+def _row_groups(m: int, c: int, device: torch.device) -> int:
+    """Row groups of a reduction launch: enough blocks to fill the card,
+    but no fewer than _MIN_ROWS_PER_THREAD rows per thread."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    col_blocks = -(-c // _RED_CHANNELS)
+    want = max(1, sms * _RED_BLOCKS_PER_SM // col_blocks)
+    cap = max(1, -(-m // (_RED_ROWS * _MIN_ROWS_PER_THREAD)))
+    return min(want, cap, 65535)
 
 
 # ---------------------------------------------------------------------------
@@ -128,55 +201,23 @@ normalize_u8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# scale_bias_relu
+# scale_bias_relu and its backward
 # ---------------------------------------------------------------------------
+
+
+def _channel_view(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return v.view((1, -1) + (1,) * (x.ndim - 2))
 
 
 def scale_bias_relu_reference(x: torch.Tensor, scale: torch.Tensor,
                               bias: torch.Tensor) -> torch.Tensor:
     """Plain version of scale_bias_relu: f32 math, output in x's dtype."""
-    shape = (1, -1) + (1,) * (x.ndim - 2)
-    y = x.float() * scale.view(shape) + bias.view(shape)
+    y = x.float() * _channel_view(x, scale) + _channel_view(x, bias)
     return torch.clamp_min(y, 0.0).to(x.dtype)
 
 
-def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """relu(x * scale + bias) with f32 per-channel scale and bias, in f32,
-    written in x's dtype (f32 or bf16).
-
-    x is NCHW in ``channels_last`` memory or (M, C) contiguous, so that
-    channels are innermost; C = x.shape[1]. The output keeps x's layout.
-    Forward only: a tensor that needs grad raises."""
-    if x.dtype not in _FLOAT_TYPES:
-        raise TypeError(f"scale_bias_relu expects float32 or bfloat16 x, "
-                        f"got {x.dtype}")
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError("scale_bias_relu expects float32 scale and bias")
-    if x.ndim == 4:
-        if not x.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError("scale_bias_relu expects a 4-D x in "
-                             "channels_last memory (channels innermost)")
-    elif x.ndim == 2:
-        if not x.is_contiguous():
-            raise ValueError("scale_bias_relu expects a contiguous 2-D x")
-    else:
-        raise ValueError(f"scale_bias_relu expects a 4-D or 2-D x, got "
-                         f"{x.ndim}-D")
-    c = x.shape[1]
-    if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,):
-        raise ValueError(f"scale {tuple(scale.shape)} and bias "
-                         f"{tuple(bias.shape)} must be ({c},)")
-    if not (scale.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("scale_bias_relu expects contiguous scale and bias")
-    if not (scale.device == bias.device == x.device):
-        raise ValueError("x, scale and bias must be on one device")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError(
-            "scale_bias_relu is forward-only in this port; its backward "
-            "kernel comes with the training slice (run under "
-            "torch.no_grad() or torch.inference_mode())")
+def _sbr_forward(x: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return scale_bias_relu_reference(x, scale, bias)
     _require_cuda(x, "scale_bias_relu")
@@ -186,11 +227,160 @@ def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
     lib = _lib()
     err = lib.rppe_scale_bias_relu(
         x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.numel(), c, int(x.dtype == torch.bfloat16), x.device.index,
-        _stream(x))
+        out.numel(), x.shape[1], int(x.dtype == torch.bfloat16),
+        x.device.index, _stream(x))
     _check_launch(lib, err, "scale_bias_relu")
     scale_bias_relu.launches += 1
     return out
 
 
+def scale_bias_relu_backward_reference(
+        x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+        bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of scale_bias_relu_backward, line by line the JAX
+    package's ``_sbr_bwd``: (dx in x's dtype, dscale f32, dbias f32)."""
+    xf = x.float()
+    gf = g.float()
+    pre = xf * _channel_view(x, scale) + _channel_view(x, bias)
+    mask = (pre > 0).float()
+    gm = gf * mask
+    dx = (gm * _channel_view(x, scale)).to(x.dtype)
+    dims = tuple(d for d in range(x.ndim) if d != 1)
+    dscale = torch.sum(gm * xf, dim=dims)
+    dbias = torch.sum(gm, dim=dims)
+    return dx, dscale, dbias
+
+
+def scale_bias_relu_backward(
+        x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+        bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of relu(x * scale + bias) for the output cotangent g:
+    with mask = x * scale + bias > 0 (f32), dx = g * mask * scale in x's
+    dtype, dscale = sum(g * mask * x) and dbias = sum(g * mask) per
+    channel in f32, in one read of x and g.
+
+    x and g have one dtype and one layout, channels innermost (as
+    scale_bias_relu's x); dx keeps it."""
+    name = "scale_bias_relu_backward"
+    _check_channels_innermost(x, name)
+    if g.dtype != x.dtype or not _same_layout(x, g):
+        raise ValueError(f"{name}: g must have x's dtype, shape and layout "
+                         f"(x {x.dtype} {tuple(x.shape)} {x.stride()}, g "
+                         f"{g.dtype} {tuple(g.shape)} {g.stride()})")
+    _check_channel_vectors(x, name, scale, bias)
+    if g.device != x.device:
+        raise ValueError(f"{name}: x and g must be on one device")
+    if x.device.type == "cpu":
+        return scale_bias_relu_backward_reference(x, g, scale, bias)
+    _require_cuda(x, name)
+    c = x.shape[1]
+    dx = torch.empty_like(x)
+    dscale = torch.zeros(c, dtype=torch.float32, device=x.device)
+    dbias = torch.zeros(c, dtype=torch.float32, device=x.device)
+    m = x.numel() // c if c else 0
+    if m == 0 or c == 0:
+        return dx, dscale, dbias
+    groups = _row_groups(m, c, x.device)
+    part = torch.empty((2, groups, c), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.rppe_scale_bias_relu_backward(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), m, c,
+        int(x.dtype == torch.bfloat16), groups, dx.data_ptr(),
+        part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), x.device.index,
+        _stream(x))
+    _check_launch(lib, err, name)
+    scale_bias_relu_backward.launches += 1
+    return dx, dscale, dbias
+
+
+scale_bias_relu_backward.launches = 0
+
+
+class _ScaleBiasReLU(torch.autograd.Function):
+    """scale_bias_relu with its backward kernel (jax.custom_vjp in the JAX
+    package). Its backward is not differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale, bias)
+        return _sbr_forward(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "scale_bias_relu has no second derivative (its backward is "
+                "a kernel); do not differentiate through its gradient")
+        x, scale, bias = ctx.saved_tensors
+        if not _same_layout(x, g):
+            # the layout of a gradient is not the caller's to choose (max
+            # pooling, residual adds and convolutions may hand back
+            # NCHW-contiguous memory): copy, and count the copy
+            g = g.contiguous(memory_format=(torch.channels_last
+                                            if x.ndim == 4
+                                            else torch.contiguous_format))
+            scale_bias_relu.grad_layout_copies += 1
+        return scale_bias_relu_backward(x, g, scale, bias)
+
+
+def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """relu(x * scale + bias) with f32 per-channel scale and bias, in f32,
+    written in x's dtype (f32 or bf16).
+
+    x is NCHW in ``channels_last`` memory or (M, C) contiguous, so that
+    channels are innermost; C = x.shape[1]. The output keeps x's layout.
+    Differentiable in x, scale and bias through scale_bias_relu_backward;
+    a gradient that arrives in another layout than x's is copied into
+    x's, and counted in ``scale_bias_relu.grad_layout_copies``."""
+    _check_channels_innermost(x, "scale_bias_relu")
+    _check_channel_vectors(x, "scale_bias_relu", scale, bias)
+    return _ScaleBiasReLU.apply(x, scale, bias)
+
+
 scale_bias_relu.launches = 0
+scale_bias_relu.grad_layout_copies = 0
+
+
+# ---------------------------------------------------------------------------
+# channel_stats
+# ---------------------------------------------------------------------------
+
+
+def channel_stats_reference(x: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of channel_stats: f32 (sum, sum of squares) per
+    channel (dim 1) over every other dim."""
+    xf = x.float()
+    dims = tuple(d for d in range(x.ndim) if d != 1)
+    return torch.sum(xf, dim=dims), torch.sum(xf * xf, dim=dims)
+
+
+def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel f32 (sum x, sum x^2) in one read of x (f32 or bf16),
+    with x laid out as scale_bias_relu's (channels innermost, C =
+    x.shape[1]). Any C and any number of rows: the JAX kernel's
+    lcm(C, 128) tiling limit does not apply."""
+    _check_channels_innermost(x, "channel_stats")
+    if x.device.type == "cpu":
+        return channel_stats_reference(x)
+    _require_cuda(x, "channel_stats")
+    c = x.shape[1]
+    s = torch.zeros(c, dtype=torch.float32, device=x.device)
+    ss = torch.zeros(c, dtype=torch.float32, device=x.device)
+    m = x.numel() // c if c else 0
+    if m == 0 or c == 0:
+        return s, ss
+    groups = _row_groups(m, c, x.device)
+    part = torch.empty((2, groups, c), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.rppe_channel_stats(
+        x.data_ptr(), m, c, int(x.dtype == torch.bfloat16), groups,
+        part.data_ptr(), s.data_ptr(), ss.data_ptr(), x.device.index,
+        _stream(x))
+    _check_launch(lib, err, "channel_stats")
+    channel_stats.launches += 1
+    return s, ss
+
+
+channel_stats.launches = 0

@@ -1,5 +1,11 @@
 """Checkpoints of the port: one file, ``torch.save`` of
-``{"config": cfg.to_dict(), "state_dict": ...}``.
+``{"config": cfg.to_dict(), "state_dict": ...}``, and for a training
+checkpoint also ``"training": {"step", "optimizer", "pipeline"}`` (the
+update count and the torch optimizer's state, and the sampler state of the
+train pipeline).
+
+``fit`` writes ``<train.ckpt_dir>/step_<step>.pt`` and keeps the newest
+``train.ckpt_keep``.
 
 The JAX package's orbax checkpoints need JAX to read; converting them is
 a tool outside the port's runtime (``utils.convert.state_dict_from_jax``
@@ -9,19 +15,25 @@ takes the restored variables).
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+import re
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
 
+_STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
-def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor]) -> None:
+
+def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor],
+         training: Optional[Dict[str, Any]] = None) -> None:
     """Write the checkpoint atomically (a temporary file renamed into
     place), with the tensors on the CPU."""
     payload = {"config": cfg.to_dict(),
                "state_dict": {k: v.detach().cpu()
                               for k, v in state_dict.items()}}
+    if training is not None:
+        payload["training"] = training
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -29,5 +41,40 @@ def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor]) -> None:
 
 def load(path: str) -> Tuple[Config, Dict[str, torch.Tensor]]:
     """(config, state_dict on the CPU) from a checkpoint written by save."""
+    cfg, state_dict, _ = load_training(path)
+    return cfg, state_dict
+
+
+def load_training(path: str
+                  ) -> Tuple[Config, Dict[str, torch.Tensor],
+                             Optional[Dict[str, Any]]]:
+    """(config, state_dict, training state or None), all on the CPU."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    return Config.from_dict(payload["config"]), payload["state_dict"]
+    return (Config.from_dict(payload["config"]), payload["state_dict"],
+            payload.get("training"))
+
+
+def step_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}.pt")
+
+
+def steps(ckpt_dir: str) -> List[int]:
+    """Steps of the training checkpoints in ckpt_dir, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    found = (_STEP_FILE.match(name) for name in os.listdir(ckpt_dir))
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def save_step(ckpt_dir: str, step: int, keep: int, cfg: Config,
+              state_dict: Dict[str, torch.Tensor],
+              training: Dict[str, Any]) -> str:
+    """Write step_<step>.pt in ckpt_dir, then delete all but the newest
+    ``keep`` (0 keeps all). Returns the new file's path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = step_path(ckpt_dir, step)
+    save(path, cfg, state_dict, training)
+    if keep > 0:
+        for old in steps(ckpt_dir)[:-keep]:
+            os.remove(step_path(ckpt_dir, old))
+    return path

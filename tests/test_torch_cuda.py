@@ -85,6 +85,118 @@ def test_scale_bias_relu_kernel_matches_plain(cuda, shape, dtype):
     assert err <= _tol(dtype, magnitude)
 
 
+def _stats_inputs(shape, dtype, cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    if x.ndim == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 32, 32), (16, 512, 4, 4),
+                                   (100003, 64), (1000, 3)])
+def test_channel_stats_kernel_matches_plain(cuda, shape, dtype):
+    x = _stats_inputs(shape, dtype, cuda, seed=2)
+    before = fused.channel_stats.launches
+    s, ss = fused.channel_stats(x)
+    again = fused.channel_stats(x)
+    torch.cuda.synchronize()
+    assert fused.channel_stats.launches == before + 2
+    # deterministic: no float atomics, a fixed order of partial sums
+    assert torch.equal(s, again[0]) and torch.equal(ss, again[1])
+    rs, rss = fused.channel_stats_reference(x)
+    # f32 sums of the same values in other orders: 1e-5 of the sum of
+    # magnitudes per channel
+    xf = fused.channel_rows(x).float()
+    assert torch.all((s - rs).abs() <= 1e-5 * xf.abs().sum(0))
+    assert torch.all((ss - rss).abs() <= 1e-5 * (xf * xf).sum(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 32, 32), (16, 512, 4, 4),
+                                   (100003, 64)])
+def test_scale_bias_relu_backward_kernel_matches_plain(cuda, shape, dtype):
+    x = _stats_inputs(shape, dtype, cuda, seed=3)
+    gout = _stats_inputs(shape, dtype, cuda, seed=4)
+    c = shape[1]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    s = torch.rand(c, generator=gen, device=cuda) + 0.5
+    b = torch.randn(c, generator=gen, device=cuda) * 0.5
+    before = fused.scale_bias_relu_backward.launches
+    dx, ds, db = fused.scale_bias_relu_backward(x, gout, s, b)
+    again = fused.scale_bias_relu_backward(x, gout, s, b)
+    torch.cuda.synchronize()
+    assert fused.scale_bias_relu_backward.launches == before + 2
+    assert all(torch.equal(a, a2) for a, a2 in zip((dx, ds, db), again))
+    rdx, rds, rdb = fused.scale_bias_relu_backward_reference(x, gout, s, b)
+    assert dx.dtype == dtype and dx.stride() == x.stride()
+    # the kernel decides the mask from x*s+b rounded twice, as the plain
+    # version does, so dx agrees to the output's rounding: exact in f32,
+    # one bf16 ulp in bf16
+    tol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert ((dx.float() - rdx.float()).abs()
+            <= tol * rdx.float().abs()).all()
+    gm = gout.float() * (rdx.float() != 0)
+    xf = fused.channel_rows(x).float()
+    gmf = fused.channel_rows(gm)
+    assert torch.all((ds - rds).abs() <= 1e-5 * (gmf * xf).abs().sum(0)
+                     + 1e-6)
+    assert torch.all((db - rdb).abs() <= 1e-5 * gmf.abs().sum(0) + 1e-6)
+
+
+def test_training_step_on_cuda_matches_cpu_and_runs_the_kernels(cuda,
+                                                                monkeypatch):
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+        forward_backward,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    # A ReLU input within rounding of 0 takes another side on the card than
+    # on the CPU and moves its BatchNorm channel's gradients by percents.
+    # At this seed none does (worst gradient 1.2e-5 of its tensor's largest
+    # on an H100 with deterministic cuDNN); chip_smoke.py's full-width
+    # comparison replays the card's ReLU decisions instead.
+    rs = np.random.RandomState(4)
+    batch = {"images": {"agentview": torch.from_numpy(
+                 rs.randint(0, 256, (8, 64, 64, 3), np.uint8))},
+             "proprio": torch.from_numpy(rs.randn(8, 32).astype(np.float32)),
+             "target_pos": torch.from_numpy(rs.randn(8, 3).astype(np.float32)),
+             "target_quat": torch.from_numpy(
+                 rs.randn(8, 4).astype(np.float32))}
+    for route, want in (("reduce", (9, 9, 0)), ("pallas", (0, 0, 20))):
+        cfg = preset("pr3").override(**{"model.image_size": 64,
+                                        "model.bn_stats": route})
+        sd = state_dict_from_jax(random_jax_variables(cfg.model, seed=0),
+                                 cfg.model)
+        grads = {}
+        for dev in ("cpu", cuda):
+            state = create_state(cfg, torch.device(dev), sd)
+            b = {k: ({c: t.to(dev) for c, t in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in batch.items()}
+            counts = (fused.scale_bias_relu.launches,
+                      fused.scale_bias_relu_backward.launches,
+                      fused.channel_stats.launches)
+            loss = forward_backward(state.model, b, cfg.train)["loss"]
+            torch.cuda.synchronize()
+            seen = (fused.scale_bias_relu.launches - counts[0],
+                    fused.scale_bias_relu_backward.launches - counts[1],
+                    fused.channel_stats.launches - counts[2])
+            assert seen == (want if dev != "cpu" else (0, 0, 0)), route
+            grads[str(dev)] = (loss.item(), {
+                k: p.grad.cpu() for k, p in state.model.named_parameters()})
+        (lc, gc), (lg, gg) = grads["cpu"], grads[str(cuda)]
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+        for k in gc:
+            assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
 def test_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
     x = torch.zeros((2, 8, 4, 4), device=cuda)          # NCHW-contiguous
     s = torch.ones(8, device=cuda)

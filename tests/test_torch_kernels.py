@@ -131,7 +131,13 @@ def _bad_sbr(case):
     if case == "wrong_channels":
         return lambda: fused.scale_bias_relu(x, s[:4], b[:4])
     if case == "needs_grad":
-        return lambda: fused.scale_bias_relu(x, s.requires_grad_(), b)
+        # the first derivative is a kernel; a second one is refused
+        def second_derivative():
+            s.requires_grad_()
+            y = fused.scale_bias_relu(x + 1.0, s, b)
+            (ds,) = torch.autograd.grad(y.sum(), s, create_graph=True)
+            return ds
+        return second_derivative
     raise AssertionError(case)
 
 

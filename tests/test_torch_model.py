@@ -109,8 +109,16 @@ def test_batchnorm_act_matches_jax(pr3, act):
 
 
 def test_batchnorm_act_train_mode_raises():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        BatchNormAct(4)(torch.zeros(1, 4, 2, 2))
+    # train mode runs (tests/test_torch_train.py); what it raises on is an
+    # activation whose channels are not innermost, on the two routes whose
+    # kernels need them so (the matmul route takes any layout)
+    x = torch.zeros(1, 4, 2, 2)                       # NCHW-contiguous
+    for route in ("reduce", "pallas"):
+        with pytest.raises(ValueError, match="channels_last"):
+            BatchNormAct(4, stats_impl=route)(x)
+    assert BatchNormAct(4, stats_impl="matmul")(x).shape == x.shape
+    with pytest.raises(ValueError, match="stats_impl"):
+        BatchNormAct(4, stats_impl="welford")
 
 
 def test_conv_bn_relu_matches_jax(pr3):
