@@ -7,13 +7,18 @@ card and check them.
 Phases, one or more lines each, and the last line is the result:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels of csrc/, built with nvcc from the checkout;
+2. build: the CUDA kernels of csrc/, built with nvcc from the checkout,
+   with ptxas' registers and spills of each (no spills allowed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the same inputs, at the shapes of a pr3 step at batch 128, in f32 and
    bf16, with its time, the plain version's time, its bound and, where
    one PyTorch call computes the same function, that call's time:
    normalize_u8 and scale_bias_relu (the serving path), channel_stats and
-   scale_bias_relu_backward (the training path);
+   scale_bias_relu_backward (the training path). The two reductions also
+   print, per site, their share of the bound, the vector width their plan
+   chose and the kernel launches of one call (must be 1), take a ragged
+   M, C = 3 or 100 and a misaligned view, and repeat REPEATS launches at
+   the stem shape bit for bit;
 4. serving: the pr3 Predictor at full width (128x128 ResNet-18 + proprio
    MLP, seeded random weights through state_dict_from_jax) answers
    requests of batch 1, 8 and 128; launch counters show the kernels ran,
@@ -25,7 +30,8 @@ Phases, one or more lines each, and the last line is the result:
    a seed, with bn_stats="reduce" and with bn_stats="pallas": one train
    step on the card against the same step on the CPU, 16 f32 steps with
    one eval pass, launch counters per step, step time, images/s, the
-   device's busy time by kernel group and idle share, then 8 bf16 steps;
+   device's busy time by kernel group (no second reduction launch, the
+   old fold group) and idle share, then 8 bf16 steps;
 6. a JSON line of per-kernel numbers, the card's name and power limit,
    and ``{"ok": true, "device": {...}}`` last.
 
@@ -63,7 +69,16 @@ K2_RAGGED = (100003, 64)         # an M that is a multiple of no block size
 K3_SITES = [((BATCH, 64, 64, 64), 1), ((BATCH, 64, 32, 32), 4),
             ((BATCH, 128, 16, 16), 5), ((BATCH, 256, 8, 8), 5),
             ((BATCH, 512, 4, 4), 5)]
-K3_EXTRA = [((100003, 64), "ragged"), ((100003, 3), "C=3")]
+MISALIGNED = "misaligned"
+# beyond the sites: a ragged M, the one-element path (C = 3; C = 100 in
+# bf16, which 8 does not divide; a view one element past a 16-byte
+# boundary), and one block's worth of rows (the fixed cost of a launch)
+K3_EXTRA = [((100003, 64), "ragged"), ((100003, 3), "C=3"),
+            ((4099, 100), "C=100"), ((MISALIGNED, 4099, 64), MISALIGNED),
+            ((64, 64), "one block")]
+K2_BWD_EXTRA = [(K2_RAGGED, "ragged"), ((4099, 100), "C=100"),
+                ((MISALIGNED, 4099, 64), MISALIGNED), ((64, 64), "one block")]
+REPEATS = 1000                   # launches held bit for bit to the first
 # share of dx elements whose ReLU mask may differ from the plain version's
 # (a pre-activation within an ulp of 0); the kernel rounds x*s+b as the
 # plain version does, so none are expected
@@ -111,6 +126,42 @@ def kernel_tolerance(dtype: torch.dtype, magnitude: float) -> float:
     return (1e-6 if dtype == torch.float32 else 2.0 ** -7) * (1.0 + magnitude)
 
 
+def _short_kernel_name(mangled: str) -> str:
+    """name<type[, V]> from a mangled _ZN...<len>name_kernelI<type>[Li<V>E]
+    kernel template name, else the mangled name."""
+    import re
+
+    for hit in re.finditer(r"\d+", mangled):
+        name = mangled[hit.end():hit.end() + int(hit.group())]
+        rest = mangled[hit.end() + len(name):]
+        if name.endswith("_kernel") and rest.startswith("I"):
+            dtype = "bf16" if rest.startswith("I13__nv_bfloat16") else "f32"
+            vec = re.match(r"I(?:13__nv_bfloat16|f)Li(\d+)E", rest)
+            return f"{name}<{dtype}{', ' + vec.group(1) if vec else ''}>"
+    return mangled
+
+
+def ptxas_kernels(report: str) -> list:
+    """[(kernel, registers, spill bytes stored + loaded)] from ptxas -v."""
+    import re
+
+    out, kernel, spills = [], None, 0
+    for line in report.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            kernel = _short_kernel_name(hit.group(1))
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit:
+            spills = int(hit.group(1)) + int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and kernel:
+            out.append((kernel, int(hit.group(1)), spills))
+            kernel, spills = None, 0
+    check(bool(out), "ptxas reported no kernel")
+    return out
+
+
 def device_ms(fn, arg_sets) -> float:
     """Device time of one call of fn, in ms: CUDA events around
     TIMED_LAUNCHES calls queued behind a sleep kernel, so that host-side
@@ -133,6 +184,60 @@ def device_ms(fn, arg_sets) -> float:
 
 def copies_beyond_l2(nbytes: int) -> int:
     return max(2, min(64, math.ceil(4 * L2_BYTES / max(nbytes, 1))))
+
+
+def rows_input(shape, dtype, gen, dev, shift=0.0):
+    """Seeded normal values (+ shift) of ``shape`` in ``dtype``: NCHW in
+    channels_last memory, (M, C) contiguous, or, for (MISALIGNED, M, C), an
+    (M, C) view one element past a 16-byte boundary."""
+    if shape[0] == MISALIGNED:
+        m, c = shape[1:]
+        x = torch.empty(m * c + 1, dtype=dtype, device=dev)[1:].view(m, c)
+        x.copy_(torch.randn((m, c), generator=gen, device=dev) + shift)
+        check(x.data_ptr() % 16 != 0, "the misaligned view is aligned")
+        return x
+    x = (torch.randn(shape, generator=gen, device=dev) + shift).to(dtype)
+    return _channels_last(x)
+
+
+def launches_per_call(fn, args, counter) -> tuple:
+    """(kernel launches of one call of fn, how they were counted): device
+    kernels in a torch.profiler trace of one call, or, where the profiler
+    sees none, the call's step of the wrapper's launch counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = counter.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if seen:
+        return len(seen), "profiler"
+    return counter.launches - before, "launch counter"
+
+
+def vector_width(fn, args, counter, dtype) -> int:
+    """Channels per access that the wrapper's plan chose for one call."""
+    scalar = counter.scalar_launches
+    fn(*args)
+    return 1 if counter.scalar_launches > scalar else 16 // dtype.itemsize
+
+
+def bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def differing_bits(fn, args, repeats: int = REPEATS) -> int:
+    """Elements of fn's outputs that differ, over ``repeats`` launches,
+    from the first launch's, bit for bit."""
+    first = [bits(t).clone() for t in fn(*args)]
+    differ = torch.zeros((), dtype=torch.int64, device=first[0].device)
+    for _ in range(repeats):
+        for a, b in zip(fn(*args), first):
+            differ += (bits(a) != b).sum()
+    return int(differ.item())
 
 
 def bound(nbytes: int, ops: int) -> tuple:
@@ -238,11 +343,19 @@ def _channels_last(x):
         else x
 
 
+def _sites_label(sites):
+    return f"x{sites} site(s)" if isinstance(sites, int) else sites
+
+
 def phase_channel_stats(fused, dev):
-    """K3 channel_stats at the twenty BN sites of a pr3 step, a ragged M
-    and C = 3, in f32 and bf16; returns the f32 summary over the sites."""
+    """K3 channel_stats at the twenty BN sites of a pr3 step, a ragged M,
+    C = 3, C = 100 and a misaligned view, in f32 and bf16: agreement with
+    the plain version, time against the bound, the vector width the plan
+    chose, launches per call (1), and REPEATS launches at the stem shape
+    bit for bit; returns the f32 summary over the sites."""
     g = torch.Generator(device=dev).manual_seed(2)
     summary = None
+    fn = fused.channel_stats
 
     def library(x):
         return torch.var_mean(fused.channel_rows(x), dim=0, correction=0)
@@ -251,13 +364,12 @@ def phase_channel_stats(fused, dev):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                       nbytes=0, ops=0)
         for shape, sites in K3_SITES + K3_EXTRA:
-            n = math.prod(shape)
-            c = shape[1]
-            copies = copies_beyond_l2(n * dtype.itemsize)
-            xs = [_channels_last((torch.randn(shape, generator=g, device=dev)
-                                  + 0.5).to(dtype)) for _ in range(copies)]
-            s, ss = fused.channel_stats(xs[0])
-            s2, ss2 = fused.channel_stats(xs[0])
+            xs = [rows_input(shape, dtype, g, dev, shift=0.5)]
+            n, c = xs[0].numel(), xs[0].shape[1]
+            xs += [rows_input(shape, dtype, g, dev, shift=0.5)
+                   for _ in range(copies_beyond_l2(n * dtype.itemsize) - 1)]
+            s, ss = fn(xs[0])
+            s2, ss2 = fn(xs[0])
             check(torch.equal(s, s2) and torch.equal(ss, ss2),
                   f"channel_stats {shape} {dtype}: two launches differ")
             rs, rss = fused.channel_stats_reference(xs[0])
@@ -272,22 +384,29 @@ def phase_channel_stats(fused, dev):
             rel_var = ((var - rvar).abs() / rvar.abs().clamp_min(1e-12))
             worst = int(rel_var.argmax())
             err = max(err_s.max().item(), err_ss.max().item())
+            vec = vector_width(fn, (xs[0],), fn, dtype)
+            per_call, how = launches_per_call(fn, (xs[0],), fn)
             arg_sets = [(x,) for x in xs]
-            ms = device_ms(fused.channel_stats, arg_sets)
+            ms = device_ms(fn, arg_sets)
             plain = device_ms(fused.channel_stats_reference, arg_sets)
             lib = device_ms(library, arg_sets)
             nbytes = n * dtype.itemsize + 2 * c * 4
             b_ms, b_by = bound(nbytes, 3 * n)
-            where = f"x{sites} site(s)" if isinstance(sites, int) else sites
-            print(f"kernel channel_stats {shape} {str(dtype)[6:]} {where}: "
-                  f"max_abs_err sum {err_s.max().item():.3g} sumsq "
+            print(f"kernel channel_stats {shape} {str(dtype)[6:]} "
+                  f"{_sites_label(sites)}: max_abs_err sum "
+                  f"{err_s.max().item():.3g} sumsq "
                   f"{err_ss.max().item():.3g} (tol 1e-5 of sum|x|, sum x^2 "
                   f"per channel); mean rel {rel_mean.max().item():.3g}, var "
                   f"rel {rel_var.max().item():.3g} worst at channel {worst} "
                   f"(var {rvar[worst].item():.4g} mean "
-                  f"{rmean[worst].item():.4g}); bitwise repeatable; kernel "
-                  f"{ms:.4f} ms plain {plain:.4f} ms library (var_mean) "
-                  f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"{rmean[worst].item():.4g}); bitwise repeatable; "
+                  f"{nbytes} bytes; kernel {ms:.4f} ms bound {b_ms:.4f} ms "
+                  f"({b_by}) share {b_ms / ms:.3f}; vector width {vec}; "
+                  f"launches per call {per_call} ({how}); plain "
+                  f"{plain:.4f} ms library (var_mean) {lib:.4f} ms",
+                  flush=True)
+            check(per_call == 1, f"channel_stats {shape} {dtype}: "
+                                 f"{per_call} launches in one call")
             check(bool((err_s <= tol_s).all() and (err_ss <= tol_ss).all()),
                   f"channel_stats {shape} {dtype}: sums outside 1e-5 of "
                   "sum|x|, sum x^2")
@@ -302,12 +421,20 @@ def phase_channel_stats(fused, dev):
                 totals["library_ms"] += sites * lib
                 totals["nbytes"] += sites * nbytes
                 totals["ops"] += sites * 3 * n
+            if shape == K3_SITES[0][0]:
+                differ = differing_bits(fn, (xs[0],))
+                print(f"kernel channel_stats {shape} {str(dtype)[6:]}: "
+                      f"{REPEATS} launches, {differ} output elements differ "
+                      "from the first launch's bits", flush=True)
+                check(differ == 0, f"channel_stats {shape} {dtype}: not "
+                                   "bitwise repeatable")
             del xs, arg_sets, xf
         b_ms, b_by = bound(totals["nbytes"], totals["ops"])
         print(f"kernel channel_stats all twenty sites {str(dtype)[6:]}: "
-              f"kernel {totals['ms']:.4f} ms plain {totals['plain_ms']:.4f} "
-              f"ms library {totals['library_ms']:.4f} ms bound {b_ms:.4f} ms "
-              f"({b_by}, {totals['nbytes']} bytes)", flush=True)
+              f"kernel {totals['ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+              f"{totals['nbytes']} bytes) share {b_ms / totals['ms']:.3f}; "
+              f"plain {totals['plain_ms']:.4f} ms library "
+              f"{totals['library_ms']:.4f} ms", flush=True)
         if dtype == torch.float32:
             summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
                            plain_ms=totals["plain_ms"], bound_ms=b_ms,
@@ -316,31 +443,31 @@ def phase_channel_stats(fused, dev):
 
 
 def phase_sbr_backward(fused, dev):
-    """K2's backward at the nine scale_bias_relu sites and a ragged M, in
-    f32 and bf16; returns the f32 summary over the sites."""
+    """K2's backward at the nine scale_bias_relu sites, a ragged M, C = 100
+    and a misaligned view, in f32 and bf16, as phase_channel_stats; returns
+    the f32 summary over the sites."""
     gen = torch.Generator(device=dev).manual_seed(3)
     summary = None
+    fn = fused.scale_bias_relu_backward
     for dtype in (torch.float32, torch.bfloat16):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for shape, sites in K2_SITES + [(K2_RAGGED, 0)]:
-            n = math.prod(shape)
-            c = shape[1]
+        for shape, sites in K2_SITES + K2_BWD_EXTRA:
+            xs = [rows_input(shape, dtype, gen, dev)]
+            n, c = xs[0].numel(), xs[0].shape[1]
             copies = copies_beyond_l2(3 * n * dtype.itemsize)
-            xs = [_channels_last(torch.randn(shape, generator=gen,
-                                             device=dev).to(dtype))
-                  for _ in range(copies)]
-            gs = [_channels_last(torch.randn(shape, generator=gen,
-                                             device=dev).to(dtype))
-                  for _ in range(copies)]
+            xs += [rows_input(shape, dtype, gen, dev)
+                   for _ in range(copies - 1)]
+            gs = [rows_input(shape, dtype, gen, dev) for _ in range(copies)]
             s = torch.rand(c, generator=gen, device=dev) + 0.5
             b = torch.randn(c, generator=gen, device=dev) * 0.5
-            out = fused.scale_bias_relu_backward(xs[0], gs[0], s, b)
-            again = fused.scale_bias_relu_backward(xs[0], gs[0], s, b)
+            out = fn(xs[0], gs[0], s, b)
+            again = fn(xs[0], gs[0], s, b)
             check(all(torch.equal(u, v) for u, v in zip(out, again)),
                   f"scale_bias_relu_backward {shape} {dtype}: two launches "
                   "differ")
             dx, ds, db = out
-            check(dx.stride() == xs[0].stride() and dx.dtype == dtype,
+            check(dx.shape == xs[0].shape and dx.dtype == dtype
+                  and (dx.ndim == 2 or dx.stride() == xs[0].stride()),
                   f"scale_bias_relu_backward {shape}: dx layout or dtype")
             rdx, rds, rdb = fused.scale_bias_relu_backward_reference(
                 xs[0], gs[0], s, b)
@@ -357,38 +484,55 @@ def phase_sbr_backward(fused, dev):
             tol_db = 1e-5 * gm.abs().sum(0) + 1e-6
             err_ds, err_db = (ds - rds).abs(), (db - rdb).abs()
             err = max(err_dx, err_ds.max().item(), err_db.max().item())
+            args0 = (xs[0], gs[0], s, b)
+            vec = vector_width(fn, args0, fn, dtype)
+            per_call, how = launches_per_call(fn, args0, fn)
             arg_sets = [(x, gg, s, b) for x, gg in zip(xs, gs)]
-            ms = device_ms(fused.scale_bias_relu_backward, arg_sets)
+            ms = device_ms(fn, arg_sets)
             plain = device_ms(fused.scale_bias_relu_backward_reference,
                               arg_sets)
             nbytes = 3 * n * dtype.itemsize + 4 * c * 4
             b_ms, b_by = bound(nbytes, 6 * n)
-            where = f"x{sites} site(s)" if sites else "ragged"
             print(f"kernel scale_bias_relu_backward {shape} {str(dtype)[6:]} "
-                  f"{where}: mask differs at {share:.3g} of dx (limit "
-                  f"{MASK_SHARE}); max_abs_err dx elsewhere {err_dx:.3g} (tol "
-                  f"{tol_dx:.3g}) dscale {err_ds.max().item():.3g} dbias "
+                  f"{_sites_label(sites)}: mask differs at {share:.3g} of dx "
+                  f"(limit {MASK_SHARE}); max_abs_err dx elsewhere "
+                  f"{err_dx:.3g} (tol {tol_dx:.3g}) dscale "
+                  f"{err_ds.max().item():.3g} dbias "
                   f"{err_db.max().item():.3g} (tol 1e-5 of the sums of "
-                  f"magnitudes); bitwise repeatable; kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by}) library none",
+                  f"magnitudes); bitwise repeatable; {nbytes} bytes; kernel "
+                  f"{ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) share "
+                  f"{b_ms / ms:.3f}; vector width {vec}; launches per call "
+                  f"{per_call} ({how}); plain {plain:.4f} ms library none",
                   flush=True)
+            check(per_call == 1, f"scale_bias_relu_backward {shape} {dtype}: "
+                                 f"{per_call} launches in one call")
             check(share <= MASK_SHARE and err_dx <= tol_dx,
                   f"scale_bias_relu_backward {shape} {dtype}: dx differs")
             check(bool((err_ds <= tol_ds).all() and (err_db <= tol_db).all()),
                   f"scale_bias_relu_backward {shape} {dtype}: dscale or "
                   "dbias outside 1e-5 of the sums of magnitudes")
-            if sites:
+            if isinstance(sites, int):
                 totals["max_abs_err"] = max(totals["max_abs_err"], err)
                 totals["ms"] += sites * ms
                 totals["plain_ms"] += sites * plain
                 totals["nbytes"] += sites * nbytes
                 totals["ops"] += sites * 6 * n
-            del xs, gs, arg_sets, xr, gm, out, again, rdx
+            del out, again, dx, rdx, xr, gm
+            if shape == K2_SITES[0][0]:
+                differ = differing_bits(fn, args0)
+                print(f"kernel scale_bias_relu_backward {shape} "
+                      f"{str(dtype)[6:]}: {REPEATS} launches, {differ} output "
+                      "elements differ from the first launch's bits",
+                      flush=True)
+                check(differ == 0, f"scale_bias_relu_backward {shape} "
+                                   f"{dtype}: not bitwise repeatable")
+            del xs, gs, arg_sets, args0
         b_ms, b_by = bound(totals["nbytes"], totals["ops"])
         print(f"kernel scale_bias_relu_backward all nine sites "
-              f"{str(dtype)[6:]}: kernel {totals['ms']:.4f} ms plain "
-              f"{totals['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-              f"{totals['nbytes']} bytes)", flush=True)
+              f"{str(dtype)[6:]}: kernel {totals['ms']:.4f} ms bound "
+              f"{b_ms:.4f} ms ({b_by}, {totals['nbytes']} bytes) share "
+              f"{b_ms / totals['ms']:.3f}; plain {totals['plain_ms']:.4f} ms",
+              flush=True)
         if dtype == torch.float32:
             summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
                            plain_ms=totals["plain_ms"], bound_ms=b_ms,
@@ -461,19 +605,22 @@ def latency_ms(pred, obs, iters=30):
     return tuple(float(v) for v in np.percentile(times, [50, 90]))
 
 
+FOLD_GROUP = "reduction fold (stage 2)"
+
+
 def _kernel_group(name: str) -> str:
     if "normalize_u8_kernel" in name:
         return "normalize_u8"
     if "scale_bias_relu_kernel" in name:
         return "scale_bias_relu"
-    if "sbr_backward_partial_kernel" in name:
+    if "sbr_backward_kernel" in name:
         return "scale_bias_relu_backward"
-    if "channel_stats_partial_kernel" in name:
+    if "channel_stats_kernel" in name:
         return "channel_stats"
     if "fold_partials_kernel" in name:
-        # stage 2 of both reductions: K2 backward's with bn_stats="reduce",
-        # channel_stats' with "pallas"
-        return "reduction fold (stage 2)"
+        # the second launch of both reductions before they became one
+        # launch each; none is expected
+        return FOLD_GROUP
     if "Memcpy" in name or "Memset" in name:
         return "copies"
     low = name.lower()
@@ -934,7 +1081,10 @@ def run_training(rppt, fused, route, dataset, dev, smi, ckpt_root):
         groups, busy_ms = prof
         print(f"profile train {route} f32: device busy {busy_ms:.4f} ms per "
               f"step, idle share {1 - busy_ms / p50:.3f} of the p50 step; ms "
-              f"per step by kernel group {json.dumps(groups)}", flush=True)
+              f"per step by kernel group {json.dumps(groups)}; group "
+              f"{FOLD_GROUP!r} {groups.get(FOLD_GROUP, 0.0)} ms", flush=True)
+        check(FOLD_GROUP not in groups,
+              f"{route}: a second reduction launch ran in the step")
     del state, out
     return launches
 
@@ -999,6 +1149,11 @@ def main() -> int:
     libs = _build.build()
     print(f"build: {sorted(libs)} with nvcc in {time.perf_counter() - t:.2f} s",
           flush=True)
+    for source in libs:
+        for kernel, regs, spills in ptxas_kernels(_build.ptxas_report(source)):
+            print(f"ptxas {source}: {kernel}: {regs} registers, spill stores "
+                  f"and loads {spills} bytes", flush=True)
+            check(spills == 0, f"{kernel} spills {spills} bytes")
 
     summary = phase_kernels(fused, dev)
     summary["channel_stats"] = phase_channel_stats(fused, dev)

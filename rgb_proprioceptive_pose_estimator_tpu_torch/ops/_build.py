@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a shared
 library with a plain C interface that ``ctypes`` loads (no PyTorch headers,
 so a build takes seconds). The hash covers the source and the nvcc command,
 so a changed source is rebuilt and an unchanged one is reused. All stale
-sources compile at once, one nvcc process each.
+sources compile at once, one nvcc process each. ptxas' report of each
+kernel's registers and spills is kept beside its library (``.log``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -78,10 +79,17 @@ def build(names: Sequence[str] = ()) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"csrc/{name}.cu:\n{out.decode(errors='replace')}")
         else:
+            # ptxas' report: registers, stack and spills of each kernel
+            stale[name].with_suffix(".log").write_bytes(out)
             os.replace(tmp, stale[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said (``-Xptxas=-v``) when it built csrc/<name>.cu."""
+    return library_path(name).with_suffix(".log").read_text(errors="replace")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,14 +14,17 @@ A wrapper checks its inputs the same way on every device. A tensor on the
 CPU then goes to the plain version (``*_reference``); a CUDA tensor goes
 to the kernel, or the wrapper raises: it never falls back. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``. The two reductions
-are deterministic: the same input gives bitwise-equal sums.
+are one launch each and deterministic: the same input gives
+bitwise-equal sums. Their launches with one element per access (C not a
+multiple of 16 bytes' worth, or a pointer not 16-byte aligned) are also
+counted in ``<wrapper>.scalar_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -43,12 +46,13 @@ def _lib() -> ctypes.CDLL:
     lib.rppe_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
                                          i32, ptr]
     lib.rppe_scale_bias_relu.restype = i32
-    lib.rppe_channel_stats.argtypes = [ptr, i64, i32, i32, i32, ptr, ptr,
-                                       ptr, i32, ptr]
+    plan = [i32] * 5                  # vec, tx, tiles, groups, rows
+    lib.rppe_channel_stats.argtypes = [ptr, i64, i32, i32, *plan, ptr, ptr,
+                                       ptr, ptr, i32, ptr]
     lib.rppe_channel_stats.restype = i32
     lib.rppe_scale_bias_relu_backward.argtypes = [ptr, ptr, ptr, ptr, i64,
-                                                  i32, i32, i32, ptr, ptr,
-                                                  ptr, ptr, i32, ptr]
+                                                  i32, i32, *plan, ptr, ptr,
+                                                  ptr, ptr, ptr, i32, ptr]
     lib.rppe_scale_bias_relu_backward.restype = i32
     lib.rppe_error_string.argtypes = [i32]
     lib.rppe_error_string.restype = ctypes.c_char_p
@@ -118,20 +122,107 @@ def channel_rows(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-# rows of threads and channels of one reduction block (kRedY, kRedX in
-# csrc/fused.cu), and the least rows each thread sums
-_RED_ROWS, _RED_CHANNELS, _MIN_ROWS_PER_THREAD = 8, 32, 16
-_RED_BLOCKS_PER_SM = 8
+# threads of a reduction block (kRedThreads in csrc/fused.cu); the rows a
+# thread takes per loop trip at most (U: 8 in channel_stats, 4 in the
+# backward); blocks per SM the plan aims for; partials a thread of the
+# folding block reads at most; CUDA's grid.y limit
+_RED_THREADS, _RED_UNROLL, _RED_BLOCKS_PER_SM = 512, 8, 2
+_FOLD_LOADS, _MAX_GROUPS = 32, 65535
+# channels of a tile at most: a wide C is cut into more tiles, each folded
+# by its own last block, so that more blocks run without a longer fold (a
+# warp still reads whole rows of a tile: two rows of 512 bytes of f32 at
+# C = 64, four of 128 bytes of bf16)
+_RED_TILE_CHANNELS = 64
+_INT32_MAX = 2 ** 31 - 1
 
 
-def _row_groups(m: int, c: int, device: torch.device) -> int:
-    """Row groups of a reduction launch: enough blocks to fill the card,
-    but no fewer than _MIN_ROWS_PER_THREAD rows per thread."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    col_blocks = -(-c // _RED_CHANNELS)
-    want = max(1, sms * _RED_BLOCKS_PER_SM // col_blocks)
-    cap = max(1, -(-m // (_RED_ROWS * _MIN_ROWS_PER_THREAD)))
-    return min(want, cap, 65535)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ReductionPlan(NamedTuple):
+    """The launch of one reduction (channel_stats, scale_bias_relu_backward)
+    over x (m, c): each thread moves ``vec`` neighbouring channels per
+    access, a block is ``block`` = (tx, ty) threads, the grid ``grid`` =
+    (tiles, groups), and group g owns rows [g * rows_per_group, (g + 1) *
+    rows_per_group) of m."""
+    vec: int
+    block: Tuple[int, int]
+    grid: Tuple[int, int]
+    rows_per_group: int
+
+    @property
+    def tiles(self) -> int:
+        return self.grid[0]
+
+    @property
+    def groups(self) -> int:
+        return self.grid[1]
+
+
+def _reduction_plan(m: int, c: int, dtype: torch.dtype,
+                    data_ptrs: Sequence[int], sms: int) -> ReductionPlan:
+    """The launch of a reduction over x (m, c) of ``dtype``, whose tensors
+    (x, and g and dx for the backward) start at ``data_ptrs``, on a card
+    of ``sms`` SMs.
+
+    - 16-byte accesses (4 f32 or 8 bf16 channels) where C is a multiple of
+      them and every pointer is 16-byte aligned, else one element.
+    - tx threads cover the chunks of a tile of channels (a power of two, at
+      most a warp and _RED_TILE_CHANNELS channels), the other (512 / tx)
+      threads of a block take rows.
+    - About _RED_BLOCKS_PER_SM blocks per SM in all, so that the large
+      sites fill the card; but every thread gets at least one full loop
+      trip of rows, so the small sites get few blocks with many rows each,
+      and no thread of the block that folds the partials reads more than
+      _FOLD_LOADS of them (each read waits on L2, after every other block
+      has finished). A group's rows are a multiple of the rows a block
+      takes per trip, and its offsets fit in 32 bits."""
+    if m < 1 or c < 1:
+        raise ValueError(f"a reduction needs m, c >= 1, got ({m}, {c})")
+    vec = 16 // dtype.itemsize
+    if c % vec or any(p % 16 for p in data_ptrs):
+        vec = 1
+    chunks = c // vec
+    tx = min(32, _RED_TILE_CHANNELS // vec, 1 << (chunks - 1).bit_length())
+    ty = _RED_THREADS // tx
+    tiles = _cdiv(chunks, tx)
+    trip = ty * _RED_UNROLL
+    most_rows = _INT32_MAX // c // trip * trip
+    if most_rows < trip:
+        raise ValueError(f"a reduction takes C up to {_INT32_MAX // trip}, "
+                         f"got {c}")
+    # the folding block's threads are (2 sums x tile channels) x slices,
+    # and each reads the partials of groups / slices groups
+    slices = _RED_THREADS // (2 * tx * vec)
+    groups = min(_cdiv(sms * _RED_BLOCKS_PER_SM, tiles), _cdiv(m, trip),
+                 _FOLD_LOADS * slices)
+    rows = min(_cdiv(_cdiv(m, groups), trip) * trip, most_rows)
+    groups = _cdiv(m, rows)
+    if groups > _MAX_GROUPS:
+        raise ValueError(f"a reduction takes up to {_MAX_GROUPS * rows} rows "
+                         f"of {c} channels, got {m}")
+    return ReductionPlan(vec, (tx, ty), (tiles, groups), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# one zeroed int32 ticket buffer per (device, stream): launches on one
+# stream run in order and each leaves its tickets at 0 (csrc/fused.cu)
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int,
+                   tiles: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -275,25 +366,33 @@ def scale_bias_relu_backward(
     _require_cuda(x, name)
     c = x.shape[1]
     dx = torch.empty_like(x)
-    dscale = torch.zeros(c, dtype=torch.float32, device=x.device)
-    dbias = torch.zeros(c, dtype=torch.float32, device=x.device)
     m = x.numel() // c if c else 0
-    if m == 0 or c == 0:
-        return dx, dscale, dbias
-    groups = _row_groups(m, c, x.device)
-    part = torch.empty((2, groups, c), dtype=torch.float32, device=x.device)
+    if m == 0:
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone()
+    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(c, dtype=torch.float32, device=x.device)
+    plan = _reduction_plan(m, c, x.dtype,
+                           (x.data_ptr(), g.data_ptr(), dx.data_ptr()),
+                           _sm_count(x.device))
+    part = torch.empty((2, plan.groups, c), dtype=torch.float32,
+                       device=x.device)
+    stream = _stream(x)
     lib = _lib()
     err = lib.rppe_scale_bias_relu_backward(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), m, c,
-        int(x.dtype == torch.bfloat16), groups, dx.data_ptr(),
-        part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), x.device.index,
-        _stream(x))
+        int(x.dtype == torch.bfloat16), plan.vec, plan.block[0], plan.tiles,
+        plan.groups, plan.rows_per_group, dx.data_ptr(), part.data_ptr(),
+        _ticket_buffer(x.device, stream, plan.tiles).data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), x.device.index, stream)
     _check_launch(lib, err, name)
     scale_bias_relu_backward.launches += 1
+    scale_bias_relu_backward.scalar_launches += plan.vec == 1
     return dx, dscale, dbias
 
 
 scale_bias_relu_backward.launches = 0
+scale_bias_relu_backward.scalar_launches = 0
 
 
 class _ScaleBiasReLU(torch.autograd.Function):
@@ -366,21 +465,28 @@ def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return channel_stats_reference(x)
     _require_cuda(x, "channel_stats")
     c = x.shape[1]
-    s = torch.zeros(c, dtype=torch.float32, device=x.device)
-    ss = torch.zeros(c, dtype=torch.float32, device=x.device)
     m = x.numel() // c if c else 0
-    if m == 0 or c == 0:
-        return s, ss
-    groups = _row_groups(m, c, x.device)
-    part = torch.empty((2, groups, c), dtype=torch.float32, device=x.device)
+    if m == 0:
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return zeros, zeros.clone()
+    s = torch.empty(c, dtype=torch.float32, device=x.device)
+    ss = torch.empty(c, dtype=torch.float32, device=x.device)
+    plan = _reduction_plan(m, c, x.dtype, (x.data_ptr(),),
+                           _sm_count(x.device))
+    part = torch.empty((2, plan.groups, c), dtype=torch.float32,
+                       device=x.device)
+    stream = _stream(x)
     lib = _lib()
     err = lib.rppe_channel_stats(
-        x.data_ptr(), m, c, int(x.dtype == torch.bfloat16), groups,
-        part.data_ptr(), s.data_ptr(), ss.data_ptr(), x.device.index,
-        _stream(x))
+        x.data_ptr(), m, c, int(x.dtype == torch.bfloat16), plan.vec,
+        plan.block[0], plan.tiles, plan.groups, plan.rows_per_group,
+        part.data_ptr(), _ticket_buffer(x.device, stream, plan.tiles)
+        .data_ptr(), s.data_ptr(), ss.data_ptr(), x.device.index, stream)
     _check_launch(lib, err, "channel_stats")
     channel_stats.launches += 1
+    channel_stats.scalar_launches += plan.vec == 1
     return s, ss
 
 
 channel_stats.launches = 0
+channel_stats.scalar_launches = 0

@@ -5,11 +5,17 @@ No pybind11 in the image (SURVEY.md env facts), so the C ABI + ctypes is
 the binding layer. The library is compiled on first use with g++ and cached
 next to the source; builds are best-effort -- every caller must handle
 `available() == False` and fall back to the numpy backend.
+
+Several processes may build at once (pytest-xdist workers on a fresh
+tree): one builds under an flock on a lock file beside the library, into
+a private temporary file that is renamed onto the library, so no process
+ever loads a half-written file; the others wait and reuse its build.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -26,7 +32,7 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build_cmd() -> list:
+def _build_cmd(out: str = _LIB) -> list:
     # -march=native: the lib is compiled on first use on the host that
     # runs it (the .buildinfo check below prevents a stale lib built on a
     # different host/flags from being reused -- a foreign-ISA .so would
@@ -34,7 +40,7 @@ def _build_cmd() -> list:
     flags = os.environ.get(
         "RPPE_NATIVE_CFLAGS", "-O3 -march=native -funroll-loops").split()
     return ["g++", *flags, "-std=c++17", "-shared", "-fPIC", "-pthread",
-            "-fvisibility=hidden", _SRC, "-o", _LIB]
+            "-fvisibility=hidden", _SRC, "-o", out]
 
 
 def _cpu_id() -> str:
@@ -61,32 +67,49 @@ def _buildinfo() -> str:
 
 
 _INFO = _LIB + ".buildinfo"
+_BUILD_LOCK = _LIB + ".lock"
+
+
+def _is_current(info: str) -> bool:
+    """The library exists and its .buildinfo records ``info``."""
+    try:
+        with open(_INFO) as f:
+            return f.read() == info and os.path.exists(_LIB)
+    except OSError:
+        return False
 
 
 def build(force: bool = False) -> Optional[str]:
     """Compile the shared library; returns its path or None on failure.
 
     The cached .so is reused only when source hash, build flags, and host
-    all match the recorded .buildinfo."""
+    all match the recorded .buildinfo. The library and then its .buildinfo
+    are each renamed into place whole, under the build lock."""
     try:
         info = _buildinfo()
     except OSError:
         return None   # csrc/ not shipped: callers fall back to numpy
-    if not force and os.path.exists(_LIB) and os.path.exists(_INFO):
-        try:
-            with open(_INFO) as f:
-                if f.read() == info:
-                    return _LIB
-        except OSError:
-            pass
+    if not force and _is_current(info):
+        return _LIB
+    tmp = f"{_LIB}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
-        subprocess.run(_build_cmd(), check=True, capture_output=True,
-                       timeout=300)
-        with open(_INFO, "w") as f:
-            f.write(info)
+        with open(_BUILD_LOCK, "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            # another process may have built it while this one waited
+            if not force and _is_current(info):
+                return _LIB
+            subprocess.run(_build_cmd(tmp), check=True, capture_output=True,
+                           timeout=300)
+            os.replace(tmp, _LIB)
+            with open(tmp, "w") as f:
+                f.write(info)
+            os.replace(tmp, _INFO)
         return _LIB
     except (OSError, subprocess.SubprocessError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -85,24 +85,46 @@ def test_scale_bias_relu_kernel_matches_plain(cuda, shape, dtype):
     assert err <= _tol(dtype, magnitude)
 
 
+# a 2-D (M, C) view one element past a 16-byte boundary: the kernels take
+# it through their one-element path
+MISALIGNED = "misaligned"
+STEM_SHAPE = (128, 64, 64, 64)
+REDUCTION_SHAPES = [(8, 64, 32, 32), (16, 512, 4, 4), (100003, 64),
+                    (1000, 3), STEM_SHAPE, (4099, 100), (MISALIGNED, 4099, 64)]
+
+
 def _stats_inputs(shape, dtype, cuda, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
+    if shape[0] == MISALIGNED:
+        m, c = shape[1:]
+        x = torch.empty(m * c + 1, dtype=dtype, device=cuda)[1:].view(m, c)
+        x.copy_(torch.randn((m, c), generator=g, device=cuda) + 0.5)
+        assert x.data_ptr() % 16
+        return x
     x = (torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
     if x.ndim == 4:
         x = x.contiguous(memory_format=torch.channels_last)
     return x
 
 
+def _scalar_path(x):
+    """The kernels take one element per access: C is not a multiple of 16
+    bytes' worth, or x is not 16-byte aligned."""
+    return x.shape[1] % (16 // x.element_size()) != 0 or x.data_ptr() % 16
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 64, 32, 32), (16, 512, 4, 4),
-                                   (100003, 64), (1000, 3)])
+@pytest.mark.parametrize("shape", REDUCTION_SHAPES)
 def test_channel_stats_kernel_matches_plain(cuda, shape, dtype):
     x = _stats_inputs(shape, dtype, cuda, seed=2)
     before = fused.channel_stats.launches
+    scalar = fused.channel_stats.scalar_launches
     s, ss = fused.channel_stats(x)
     again = fused.channel_stats(x)
     torch.cuda.synchronize()
     assert fused.channel_stats.launches == before + 2
+    assert (fused.channel_stats.scalar_launches - scalar
+            == 2 * bool(_scalar_path(x)))
     # deterministic: no float atomics, a fixed order of partial sums
     assert torch.equal(s, again[0]) and torch.equal(ss, again[1])
     rs, rss = fused.channel_stats_reference(x)
@@ -114,12 +136,12 @@ def test_channel_stats_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 64, 32, 32), (16, 512, 4, 4),
-                                   (100003, 64)])
+@pytest.mark.parametrize("shape", [s for s in REDUCTION_SHAPES
+                                   if s != (1000, 3)])
 def test_scale_bias_relu_backward_kernel_matches_plain(cuda, shape, dtype):
     x = _stats_inputs(shape, dtype, cuda, seed=3)
     gout = _stats_inputs(shape, dtype, cuda, seed=4)
-    c = shape[1]
+    c = x.shape[1]
     gen = torch.Generator(device=cuda).manual_seed(5)
     s = torch.rand(c, generator=gen, device=cuda) + 0.5
     b = torch.randn(c, generator=gen, device=cuda) * 0.5
@@ -143,6 +165,56 @@ def test_scale_bias_relu_backward_kernel_matches_plain(cuda, shape, dtype):
     assert torch.all((ds - rds).abs() <= 1e-5 * (gmf * xf).abs().sum(0)
                      + 1e-6)
     assert torch.all((db - rdb).abs() <= 1e-5 * gmf.abs().sum(0) + 1e-6)
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _reductions_at(shape, dtype, cuda):
+    """channel_stats and scale_bias_relu_backward as calls on seeded
+    inputs of ``shape``."""
+    x = _stats_inputs(shape, dtype, cuda, seed=6)
+    gout = _stats_inputs(shape, dtype, cuda, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    s = torch.rand(x.shape[1], generator=gen, device=cuda) + 0.5
+    b = torch.randn(x.shape[1], generator=gen, device=cuda) * 0.5
+    return {"channel_stats": lambda: fused.channel_stats(x),
+            "scale_bias_relu_backward":
+                lambda: fused.scale_bias_relu_backward(x, gout, s, b)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["channel_stats",
+                                    "scale_bias_relu_backward"])
+def test_reduction_is_bitwise_repeatable_over_1000_launches(cuda, kernel,
+                                                            dtype):
+    # only the ticket is atomic: a partial missing from the last block's
+    # fold, or folded in another order, would show as a differing bit
+    call = _reductions_at(STEM_SHAPE, dtype, cuda)[kernel]
+    first = [_bits(t).clone() for t in call()]
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(1000):
+        for a, b in zip(call(), first):
+            differ += (_bits(a) != b).sum()
+    assert differ.item() == 0
+
+
+@pytest.mark.parametrize("kernel", ["channel_stats",
+                                    "scale_bias_relu_backward"])
+@pytest.mark.parametrize("shape", [STEM_SHAPE, (16, 512, 4, 4), (4099, 100)])
+def test_reduction_call_is_one_kernel_launch(cuda, kernel, shape):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _reductions_at(shape, torch.float32, cuda)[kernel]
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
 
 
 def test_training_step_on_cuda_matches_cpu_and_runs_the_kernels(cuda,

@@ -1,7 +1,8 @@
 """The port's kernel wrappers (ops/fused.py) and their plain versions,
 held against the JAX package's Pallas kernels run in interpret mode on the
-CPU. The CUDA kernels themselves are held against the plain versions on
-the card (tests/test_torch_cuda.py)."""
+CPU, and the launch plan of the two reductions. The CUDA kernels
+themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +159,88 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case, error):
     call = _bad_normalize(name) if which == "normalize" else _bad_sbr(name)
     with pytest.raises(error):
         call()
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of the two reductions (channel_stats and
+# scale_bias_relu_backward), checked against a numpy emulation of the
+# kernels' row, channel and fold mappings (csrc/fused.cu)
+# ---------------------------------------------------------------------------
+
+# (M, C) of the twenty channel_stats sites and nine scale_bias_relu sites of
+# a pr3 step at batch 128 (the stem and each stage), then ragged M and the C
+# of the scalar path
+STEP_REDUCTION_SITES = [(128 * 64 * 64, 64), (128 * 32 * 32, 64),
+                       (128 * 16 * 16, 128), (128 * 8 * 8, 256),
+                       (128 * 4 * 4, 512)]
+RAGGED_REDUCTIONS = [(100003, 64), (4099, 64), (4099, 100), (1001, 3),
+                     (7, 512), (1, 3), (3, 100), (100003, 512)]
+RED_THREADS = 512
+
+
+def _emulate_plan(plan, m, c):
+    """Which rows and channels the kernel's threads read, and which row
+    groups the folding block reads, as hit counts."""
+    tx, ty = plan.block
+    tiles, groups = plan.grid
+    rows_hit = np.zeros(m, np.int64)
+    for g in range(groups):
+        start = g * plan.rows_per_group
+        n = min(plan.rows_per_group, m - start)
+        for slot in range(ty):                 # thread row slot threadIdx.y
+            rows_hit[start + np.arange(slot, n, ty)] += 1
+    chunks = np.arange(tiles)[:, None] * tx + np.arange(tx)[None, :]
+    ch = (chunks[..., None] * plan.vec + np.arange(plan.vec)).reshape(-1)
+    ch_hit = np.bincount(ch[ch < c], minlength=c)
+    # the last block of a tile: (slice, pair) threads over the groups
+    pairs = 2 * tx * plan.vec
+    slices = RED_THREADS // pairs
+    fold_hit = np.bincount(np.concatenate(
+        [np.arange(s, groups, slices) for s in range(slices)]),
+        minlength=groups)
+    return rows_hit, ch_hit, fold_hit, pairs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("m,c", STEP_REDUCTION_SITES + RAGGED_REDUCTIONS)
+def test_reduction_plan_covers_every_row_and_channel_once(m, c, dtype):
+    vec16 = 16 // dtype.itemsize
+    base = 1 << 20                               # a 16-byte aligned address
+    for ptrs in ((base,), (base, base + 4096, base + 8192),
+                 (base + dtype.itemsize,), (base, base + 4096, base + 2)):
+        plan = fused._reduction_plan(m, c, dtype, ptrs, sms=132)
+        aligned = all(p % 16 == 0 for p in ptrs)
+        want_vec = vec16 if c % vec16 == 0 and aligned else 1
+        assert plan.vec == want_vec, (ptrs, plan)
+        tx, ty = plan.block
+        tiles, groups = plan.grid
+        # CUDA's limits, and the kernel's: 512 threads, tx a power of two
+        # within a warp, tiles of at most 64 channels, grid.y <= 65535,
+        # 32-bit offsets within a group
+        assert tx * ty == RED_THREADS and tx & (tx - 1) == 0 and tx <= 32
+        assert tx * plan.vec <= 64
+        assert 1 <= tiles <= 2 ** 31 - 1 and 1 <= groups <= 65535
+        assert plan.rows_per_group * c <= 2 ** 31 - 1
+        assert plan.rows_per_group % ty == 0
+        rows_hit, ch_hit, fold_hit, pairs = _emulate_plan(plan, m, c)
+        assert (rows_hit == 1).all() and (ch_hit == 1).all()
+        assert pairs <= RED_THREADS and (fold_hit == 1).all()
+
+
+@pytest.mark.parametrize("m,c", STEP_REDUCTION_SITES)
+def test_reduction_plan_fills_the_card_at_large_sites_and_not_at_small(m, c):
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = fused._reduction_plan(m, c, dtype, (0,), sms=132)
+        tx, ty = plan.block
+        slices = RED_THREADS // (2 * tx * plan.vec)
+        # the folding block's threads read at most 32 partials each
+        assert -(-plan.groups // slices) <= 32
+        # each thread takes at least one full loop trip of rows
+        assert plan.rows_per_group >= ty * 8
+        if m * c >= 2 ** 22:                 # 16 MB of f32: fill the card
+            assert plan.tiles * plan.groups >= 128
+        else:
+            assert plan.tiles * plan.groups < 132
+    with pytest.raises(ValueError):
+        fused._reduction_plan(0, 64, torch.float32, (0,), sms=132)

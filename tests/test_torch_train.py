@@ -10,6 +10,7 @@ Tolerances, each with its reason, stand beside the tests."""
 
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +58,7 @@ from rgb_proprioceptive_pose_estimator_tpu.ops.pallas_fused import (
 from rgb_proprioceptive_pose_estimator_tpu.ops.pallas_fused import (
     scale_bias_relu as jax_scale_bias_relu,
 )
+from rgb_proprioceptive_pose_estimator_tpu.runtime import native as jax_native
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config, TrainConfig
 from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
     HostPipeline,
@@ -76,6 +78,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose import (
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import BatchNormAct
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused_bn import bn_train
+from rgb_proprioceptive_pose_estimator_tpu_torch.runtime import native
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
     state_dict_from_jax,
 )
@@ -215,16 +218,19 @@ def test_reductions_route_cpu_tensors_to_plain_versions_without_counting():
     x, scale, bias, g = _sbr_inputs((2, 4, 4, 16), seed=4)
     xt, gt = _nchw(x), _nchw(g)
     s, b = torch.from_numpy(scale), torch.from_numpy(bias)
-    before = (fused.channel_stats.launches,
-              fused.scale_bias_relu_backward.launches)
+    def counts():
+        return tuple(getattr(w, k) for w in (fused.channel_stats,
+                                              fused.scale_bias_relu_backward)
+                     for k in ("launches", "scalar_launches"))
+
+    before = counts()
     for got, want in zip(fused.channel_stats(xt),
                          fused.channel_stats_reference(xt)):
         assert torch.equal(got, want)
     for got, want in zip(fused.scale_bias_relu_backward(xt, gt, s, b),
                          fused.scale_bias_relu_backward_reference(xt, gt, s, b)):
         assert torch.equal(got, want)
-    assert (fused.channel_stats.launches,
-            fused.scale_bias_relu_backward.launches) == before
+    assert counts() == before
 
 
 # ---------------------------------------------------------------------------
@@ -499,12 +505,65 @@ def _pr3_64(path, ckpt_dir="", **overrides):
     return jcfg, Config.from_dict(jcfg.to_dict())
 
 
-def test_host_pipeline_batches_match_jax_bit_for_bit(fixture_h5):
-    jcfg, cfg = _pr3_64(fixture_h5)
+NATIVE_LOAD_ATTEMPTS = 8
+
+
+@pytest.fixture(scope="module")
+def native_backends():
+    """Both packages' native augment libraries, loaded; fails, naming the
+    package, where one is missing.
+
+    The two pixel backends give other pixels (12.6% of an augmented batch
+    differs), so a comparison of augmented images holds only when both
+    sides use the same one. Each package builds its library at first use;
+    the JAX package's build writes it in place, so a process that loads it
+    while another pytest worker is rewriting it fails once and stays on
+    numpy for good (its ``_tried``). Here that first failure is forgotten
+    and the load tried again once the library and its .buildinfo are
+    complete. Neither package is changed: the reset is undone after the
+    module."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name, mod in (("JAX package", jax_native), ("port", native)):
+            for attempt in range(NATIVE_LOAD_ATTEMPTS):
+                if mod.available():
+                    break
+                time.sleep(0.5 * (attempt + 1))
+                if os.path.exists(mod._LIB) and os.path.exists(mod._INFO):
+                    mp.setattr(mod, "_tried", False)
+                    mp.setattr(mod, "_lib", None)
+            else:
+                pytest.fail(f"the {name}'s native augment library "
+                            f"{mod._LIB} could not be built or loaded")
+        yield
+
+
+def _pixel_backend(source, native_mod) -> str:
+    """The pixel backend that augmentation takes for ``source``, a store
+    or the data config a run builds its store from (both carry
+    ``use_native``)."""
+    return ("native" if source.use_native and native_mod.available()
+            else "numpy")
+
+
+def _assert_backends(want, jax_source, port_source):
+    for side, got in (("JAX", _pixel_backend(jax_source, jax_native)),
+                      ("port", _pixel_backend(port_source, native))):
+        assert got == want, (f"{side} side augments with {got}, expected "
+                             f"{want}")
+
+
+@pytest.mark.parametrize("backend", ["numpy", "native"])
+def test_host_pipeline_batches_match_jax_bit_for_bit(fixture_h5, backend,
+                                                     request):
+    use_native = backend == "native"
+    if use_native:
+        request.getfixturevalue("native_backends")
+    jcfg, cfg = _pr3_64(fixture_h5, **{"data.use_native": use_native})
     assert cfg.data.augment
-    jpipe = JaxHostPipeline(jax_build_dataset(jcfg), jcfg.data, train=True)
-    pipe = HostPipeline(build_dataset(cfg), cfg.data, device="cpu",
-                        train=True)
+    jstore, store = jax_build_dataset(jcfg), build_dataset(cfg)
+    _assert_backends(backend, jstore, store)
+    jpipe = JaxHostPipeline(jstore, jcfg.data, train=True)
+    pipe = HostPipeline(store, cfg.data, device="cpu", train=True)
     try:
         for _ in range(5):                       # over an epoch boundary
             want, got = next(jpipe), next(pipe)
@@ -538,24 +597,27 @@ def jax_init(fixture_h5):
 
 
 @pytest.fixture(scope="module")
-def fits(fixture_h5, jax_init, tmp_path_factory):
+def fits(fixture_h5, jax_init, native_backends, tmp_path_factory):
     """pr3-shaped fit of FIT_STEPS steps in both packages from the JAX
-    package's initial weights for train.seed, on the same fixture."""
+    package's initial weights for train.seed, on the same fixture, both
+    augmenting with the native engine."""
     jdir = str(tmp_path_factory.mktemp("jax_ckpt"))
     pdir = str(tmp_path_factory.mktemp("port_ckpt"))
     jcfg, _ = _pr3_64(fixture_h5, jdir)
     _, cfg = _pr3_64(fixture_h5, pdir)
+    _assert_backends("native", jcfg.data, cfg.data)
     jax_fit(jcfg)
     dataset = build_dataset(cfg)
     state = create_state(cfg, torch.device("cpu"),
                          state_dict_from_jax(jax_init, cfg.model))
     out = train_on(cfg, state, dataset, dataset)
-    return {"cfg": cfg, "port": out,
+    return {"jcfg": jcfg, "cfg": cfg, "port": out,
             "jax_metrics": os.path.join(jdir, "metrics.jsonl"),
             "port_metrics": os.path.join(pdir, "metrics.jsonl")}
 
 
 def test_pr3_fit_matches_jax_step_by_step(fits):
+    _assert_backends("native", fits["jcfg"].data, fits["cfg"].data)
     want = _metrics(fits["jax_metrics"], "train/")
     got = _metrics(fits["port_metrics"], "train/")
     assert sorted(got) == sorted(want) == list(range(1, FIT_STEPS + 1))
@@ -581,10 +643,15 @@ def test_pr3_fit_matches_jax_step_by_step(fits):
         assert torch.equal(sd[k], v)
 
 
-def test_pr3_first_step_gradients_match_jax(jax_init, fixture_h5):
+def test_pr3_first_step_gradients_match_jax(jax_init, fixture_h5,
+                                            native_backends):
     jcfg, cfg = _pr3_64(fixture_h5)
-    pipe = HostPipeline(build_dataset(cfg), cfg.data, device="cpu",
-                        train=True)
+    store = build_dataset(cfg)
+    # both sides take the port pipeline's batch, augmented by the native
+    # engine: the fixture's seed has no ReLU tie under its pixels
+    assert _pixel_backend(store, native) == "native", (
+        "port side augments with numpy, expected native")
+    pipe = HostPipeline(store, cfg.data, device="cpu", train=True)
     batch = next(pipe)
     pipe.close()
     variables = {k: dict(v) for k, v in jax_init.items()}
