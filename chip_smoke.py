@@ -11,14 +11,17 @@ Phases, one or more lines each, and the last line is the result:
    with ptxas' registers and spills of each (no spills allowed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the same inputs, at the shapes of a pr3 step at batch 128, in f32 and
-   bf16, with its time, the plain version's time, its bound and, where
-   one PyTorch call computes the same function, that call's time:
-   normalize_u8 and scale_bias_relu (the serving path), channel_stats and
-   scale_bias_relu_backward (the training path). The two reductions also
-   print, per site, their share of the bound, the vector width their plan
-   chose and the kernel launches of one call (must be 1), take a ragged
-   M, C = 3 or 100 and a misaligned view, and repeat REPEATS launches at
-   the stem shape bit for bit;
+   bf16: normalize_u8 and scale_bias_relu (the serving path), channel_stats
+   and scale_bias_relu_backward (the training path). One line per site:
+   agreement (normalize_u8 and scale_bias_relu exactly, NaN included), the
+   bytes moved, time against the bound and its share, the vector width
+   the plan chose, the kernel launches of one call (must be 1), the plain
+   version's time and, where one PyTorch call computes the same function,
+   that call's time. Each also takes shapes off the main path: a ragged M,
+   C = 3 or 100, a misaligned view; the three directions of BN-ReLU
+   (forward, backward dx, backward dscale and dbias) take NaN, +inf and
+   -inf and must place them as the plain versions do; the reductions
+   repeat REPEATS launches at the stem shape bit for bit;
 4. serving: the pr3 Predictor at full width (128x128 ResNet-18 + proprio
    MLP, seeded random weights through state_dict_from_jax) answers
    requests of batch 1, 8 and 128; launch counters show the kernels ran,
@@ -63,6 +66,9 @@ K2_SITES = [((BATCH, 64, 64, 64), 1), ((BATCH, 64, 32, 32), 2),
             ((BATCH, 128, 16, 16), 2), ((BATCH, 256, 8, 8), 2),
             ((BATCH, 512, 4, 4), 2)]
 K2_RAGGED = (100003, 64)         # an M that is a multiple of no block size
+# a NaN/inf case of the BN-ReLU kernels: NaN, +inf and -inf in a few rows
+# of the first channels of x (and g), at a mid site
+NONFINITE_SHAPE = (BATCH, 64, 32, 32)
 # the twenty channel_stats sites of one pr3 train step with
 # bn_stats="pallas": every BatchNorm (the stem, 16 in the blocks, 3
 # downsample shortcuts)
@@ -76,13 +82,17 @@ MISALIGNED = "misaligned"
 K3_EXTRA = [((100003, 64), "ragged"), ((100003, 3), "C=3"),
             ((4099, 100), "C=100"), ((MISALIGNED, 4099, 64), MISALIGNED),
             ((64, 64), "one block")]
-K2_BWD_EXTRA = [(K2_RAGGED, "ragged"), ((4099, 100), "C=100"),
-                ((MISALIGNED, 4099, 64), MISALIGNED), ((64, 64), "one block")]
+# beyond the nine sites, for K2's forward and backward
+K2_EXTRA = [(K2_RAGGED, "ragged"), ((4099, 100), "C=100"),
+            ((MISALIGNED, 4099, 64), MISALIGNED), ((64, 64), "one block")]
 REPEATS = 1000                   # launches held bit for bit to the first
 # share of dx elements whose ReLU mask may differ from the plain version's
 # (a pre-activation within an ulp of 0); the kernel rounds x*s+b as the
 # plain version does, so none are expected
 MASK_SHARE = 1e-5
+# dx = g*mask*scale, the same f32 product on both sides rounded once to
+# dx's dtype: exact in f32, within one bf16 ulp of |dx| in bf16
+DX_REL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 # training phase
 TRAIN_STEPS, STEPS_PER_CALL, EVAL_BATCHES = 16, 8, 2
 DATASET_BATCHES = 8
@@ -90,7 +100,10 @@ CMP_BATCH = 16
 # one step on the card against the same step on the CPU, f32, TF32 off
 CMP_LOSS_RTOL, CMP_GRAD_REL, CMP_STATS_RTOL, CMP_STATS_ATOL = (
     1e-4, 1e-3, 1e-4, 1e-5)
-K1_SHAPES = [(BATCH, 128, 128, 3), (8, 128, 128, 9), (3, 37, 41, 3)]
+# K1: pr3's batch, 3 stacked frames, an n that 16 does not divide (a tail
+# of 5 elements), and that image one byte past a 16-byte boundary
+K1_SHAPES = [(BATCH, 128, 128, 3), (8, 128, 128, 9), (3, 37, 41, 3),
+             (MISALIGNED, 3, 37, 41, 3)]
 TIMED_LAUNCHES = 100
 L2_BYTES = 50 * 2 ** 20
 # Whole-path tolerances. f32: the card and the CPU run the same f32 math
@@ -119,11 +132,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_tolerance(dtype: torch.dtype, magnitude: float) -> float:
-    """The kernel fuses x*s+b into one FMA where the plain version rounds
-    twice: about one f32 ulp of the largest intermediate M; in bf16 that
-    can flip the output's rounding by one bf16 ulp."""
-    return (1e-6 if dtype == torch.float32 else 2.0 ** -7) * (1.0 + magnitude)
+def check_exact(out, ref, what: str) -> None:
+    """out equals ref element for element, NaN where ref has NaN."""
+    try:
+        torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    except AssertionError as e:
+        raise SmokeFailure(f"{what}: differs from the plain version: {e}")
+
+
+def check_nonfinite_placed(got, want, what: str) -> None:
+    """NaN where want has NaN, and the same infinities where it has them."""
+    inf = want.isinf()
+    check(torch.equal(got.isnan(), want.isnan())
+          and torch.equal(got.isinf(), inf)
+          and torch.equal(got[inf], want[inf]),
+          f"{what}: NaN or inf placed otherwise than in the plain version")
 
 
 def _short_kernel_name(mangled: str) -> str:
@@ -218,11 +241,12 @@ def launches_per_call(fn, args, counter) -> tuple:
     return counter.launches - before, "launch counter"
 
 
-def vector_width(fn, args, counter, dtype) -> int:
-    """Channels per access that the wrapper's plan chose for one call."""
+def vector_width(fn, args, counter, vec: int) -> int:
+    """Elements per access that the wrapper's plan chose for one call: vec,
+    or 1 where the call counted a one-element launch."""
     scalar = counter.scalar_launches
     fn(*args)
-    return 1 if counter.scalar_launches > scalar else 16 // dtype.itemsize
+    return 1 if counter.scalar_launches > scalar else vec
 
 
 def bits(t):
@@ -247,94 +271,158 @@ def bound(nbytes: int, ops: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(fused, dev):
-    """K1 and K2 against their plain versions, timed; returns the per-kernel
-    summary of the main-path shapes in f32 (pr3's dtype)."""
+def image_input(shape, gen, dev):
+    """Seeded uint8 images of ``shape``, or, for (MISALIGNED, *shape), a
+    contiguous view of them one byte past a 16-byte boundary."""
+    if shape[0] == MISALIGNED:
+        n = math.prod(shape[1:])
+        img = torch.randint(0, 256, (n + 1,), generator=gen, device=dev,
+                            dtype=torch.uint8)[1:].view(shape[1:])
+        check(img.data_ptr() % 16 != 0, "the misaligned image is aligned")
+        return img
+    return torch.randint(0, 256, shape, generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+
+def nonfinite_(rows, channels):
+    """Write NaN, +inf and -inf into a few of ``rows`` (M, C), in their
+    first ``channels`` channels, in place."""
+    for i, value in enumerate((float("nan"), float("inf"), float("-inf"))):
+        rows[i::97, i % channels] = value
+        rows[i + 1::211, (i + 1) % channels] = value
+
+
+def phase_normalize_u8(fused, dev):
+    """K1 at K1_SHAPES in f32 and bf16, one line each: exact agreement with
+    the plain version, time against the bound, vector width, launches per
+    call, plain and library times; returns the f32 summary at pr3's
+    shape."""
     g = torch.Generator(device=dev).manual_seed(0)
-    summary = {}
-
-    # K1 normalize_u8
+    summary = None
+    fn = fused.normalize_u8
     for shape in K1_SHAPES:
+        real = shape[1:] if shape[0] == MISALIGNED else shape
+        n, c = math.prod(real), real[-1]
+        reps = c // len(MEAN)
+        # the library call: addcmul promotes uint8 to f32, with the
+        # per-channel constants built once
+        lib_scale = torch.tensor([1.0 / (255.0 * s) for s in STD] * reps,
+                                 device=dev)
+        lib_shift = torch.tensor([-m / s for m, s in zip(MEAN, STD)] * reps,
+                                 device=dev)
         for dtype in (torch.float32, torch.bfloat16):
-            n = math.prod(shape)
             copies = copies_beyond_l2(n * (1 + dtype.itemsize))
-            imgs = [torch.randint(0, 256, shape, generator=g, device=dev,
-                                  dtype=torch.uint8) for _ in range(copies)]
-            out = fused.normalize_u8(imgs[0], MEAN, STD, dtype)
+            imgs = [image_input(shape, g, dev) for _ in range(copies)]
+            out = fn(imgs[0], MEAN, STD, dtype)
             ref = fused.normalize_u8_reference(imgs[0], MEAN, STD, dtype)
+            check(out.shape == imgs[0].shape and out.dtype == dtype,
+                  f"normalize_u8 {shape} {dtype}: output shape or dtype")
+            check_exact(out, ref, f"normalize_u8 {shape} {dtype}")
             err = (out.float() - ref.float()).abs().max().item()
-            magnitude = 255 * max(1 / (255 * s) for s in STD) + max(
-                m / s for m, s in zip(MEAN, STD))
-            tol = kernel_tolerance(dtype, magnitude)
+            args0 = (imgs[0], MEAN, STD, dtype)
+            vec = vector_width(fn, args0, fn, 16)
+            tail = n % 16 if vec > 1 else 0
+            per_call, how = launches_per_call(fn, args0, fn)
             arg_sets = [(im, MEAN, STD, dtype) for im in imgs]
-            ms = device_ms(fused.normalize_u8, arg_sets)
+            ms = device_ms(fn, arg_sets)
             plain = device_ms(fused.normalize_u8_reference, arg_sets)
-            b_ms, b_by = bound(n * (1 + dtype.itemsize), 2 * n)
-            print(f"kernel normalize_u8 {shape} -> {str(dtype)[6:]}: "
-                  f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms "
-                  f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
-                  "library none",
-                  flush=True)
-            check(err <= tol, f"normalize_u8 {shape} {dtype}: error {err} "
-                              f"above {tol}")
+            nbytes = n * (1 + dtype.itemsize)
+            b_ms, b_by = bound(nbytes, 2 * n)
+            if dtype == torch.float32:
+                lib = device_ms(lambda im: torch.addcmul(lib_shift, im,
+                                                         lib_scale),
+                                [(im,) for im in imgs])
+                lib_text = f"library (addcmul) {lib:.4f} ms"
+            else:
+                lib = None
+                lib_text = "library none (no single call writes bf16)"
+            print(f"kernel normalize_u8 {shape} -> {str(dtype)[6:]}: exact "
+                  f"(rtol 0 atol 0), max_abs_err {err:.3g}; {nbytes} bytes; "
+                  f"kernel {ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) share "
+                  f"{b_ms / ms:.3f}; vector width {vec} bytes, tail {tail} "
+                  f"elements one at a time; launches per call {per_call} "
+                  f"({how}); plain {plain:.4f} ms {lib_text}", flush=True)
+            check(per_call == 1, f"normalize_u8 {shape} {dtype}: "
+                                 f"{per_call} launches in one call")
+            check(vec == (1 if shape[0] == MISALIGNED else 16),
+                  f"normalize_u8 {shape} {dtype}: vector width {vec}")
             if shape == K1_SHAPES[0] and dtype == torch.float32:
-                summary["normalize_u8"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                    bound_by=b_by)
-            del imgs, arg_sets
+                summary = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            del imgs, arg_sets, args0, out, ref
+    return summary
 
-    # K2 scale_bias_relu: the nine sites, then a ragged 2-D shape
+
+def phase_sbr_forward(fused, dev):
+    """K2's forward at the nine scale_bias_relu sites and K2_EXTRA, in f32
+    and bf16, one line each as phase_normalize_u8, then a NaN/inf case;
+    returns the f32 summary over the sites."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    summary = None
+    fn = fused.scale_bias_relu
     for dtype in (torch.float32, torch.bfloat16):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for shape, sites in K2_SITES + [(K2_RAGGED, 0)]:
-            n = math.prod(shape)
-            c = shape[1]
-            copies = copies_beyond_l2(2 * n * dtype.itemsize)
-            xs = []
-            for _ in range(copies):
-                x = torch.randn(shape, generator=g, device=dev).to(dtype)
-                if x.ndim == 4:
-                    x = x.contiguous(memory_format=torch.channels_last)
-                xs.append(x)
+        for shape, sites in K2_SITES + K2_EXTRA:
+            xs = [rows_input(shape, dtype, g, dev)]
+            n, c = xs[0].numel(), xs[0].shape[1]
+            xs += [rows_input(shape, dtype, g, dev) for _ in
+                   range(copies_beyond_l2(2 * n * dtype.itemsize) - 1)]
             s = torch.rand(c, generator=g, device=dev) + 0.5
             b = torch.randn(c, generator=g, device=dev) * 0.5
-            out = fused.scale_bias_relu(xs[0], s, b)
+            out = fn(xs[0], s, b)
             ref = fused.scale_bias_relu_reference(xs[0], s, b)
             check(out.stride() == xs[0].stride(),
                   f"scale_bias_relu {shape}: output layout differs")
+            check_exact(out, ref, f"scale_bias_relu {shape} {dtype}")
             err = (out.float() - ref.float()).abs().max().item()
-            magnitude = (xs[0].float().abs().max() * s.abs().max()
-                         + b.abs().max()).item()
-            tol = kernel_tolerance(dtype, magnitude)
+            args0 = (xs[0], s, b)
+            vec = vector_width(fn, args0, fn, 16 // dtype.itemsize)
+            per_call, how = launches_per_call(fn, args0, fn)
             arg_sets = [(x, s, b) for x in xs]
-            ms = device_ms(fused.scale_bias_relu, arg_sets)
+            ms = device_ms(fn, arg_sets)
             plain = device_ms(fused.scale_bias_relu_reference, arg_sets)
             nbytes = 2 * n * dtype.itemsize + 2 * c * 4
             b_ms, b_by = bound(nbytes, 3 * n)
-            where = f"x{sites} site(s)" if sites else "ragged"
-            print(f"kernel scale_bias_relu {shape} {str(dtype)[6:]} {where}: "
-                  f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms "
-                  f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
-                  "library none",
-                  flush=True)
-            check(err <= tol, f"scale_bias_relu {shape} {dtype}: error {err} "
-                              f"above {tol}")
-            if sites:
+            print(f"kernel scale_bias_relu {shape} {str(dtype)[6:]} "
+                  f"{_sites_label(sites)}: exact (rtol 0 atol 0), "
+                  f"max_abs_err {err:.3g}; {nbytes} bytes; kernel {ms:.4f} ms "
+                  f"bound {b_ms:.4f} ms ({b_by}) share {b_ms / ms:.3f}; "
+                  f"vector width {vec}; launches per call {per_call} ({how}); "
+                  f"plain {plain:.4f} ms library none", flush=True)
+            check(per_call == 1, f"scale_bias_relu {shape} {dtype}: "
+                                 f"{per_call} launches in one call")
+            if isinstance(sites, int):
+                check(vec == 16 // dtype.itemsize,
+                      f"scale_bias_relu {shape} {dtype}: vector width {vec}")
                 totals["max_abs_err"] = max(totals["max_abs_err"], err)
-            totals["ms"] += sites * ms
-            totals["plain_ms"] += sites * plain
-            totals["nbytes"] += sites * nbytes
-            totals["ops"] += sites * 3 * n
-            del xs, arg_sets
+                totals["ms"] += sites * ms
+                totals["plain_ms"] += sites * plain
+                totals["nbytes"] += sites * nbytes
+                totals["ops"] += sites * 3 * n
+            del xs, arg_sets, args0, out, ref
         b_ms, b_by = bound(totals["nbytes"], totals["ops"])
         print(f"kernel scale_bias_relu all nine sites {str(dtype)[6:]}: "
-              f"kernel {totals['ms']:.4f} ms plain {totals['plain_ms']:.4f} "
-              f"ms bound {b_ms:.4f} ms ({b_by}, {totals['nbytes']} bytes)",
-              flush=True)
+              f"kernel {totals['ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+              f"{totals['nbytes']} bytes) share {b_ms / totals['ms']:.3f}; "
+              f"plain {totals['plain_ms']:.4f} ms", flush=True)
         if dtype == torch.float32:
-            summary["scale_bias_relu"] = dict(
-                max_abs_err=totals["max_abs_err"], ms=totals["ms"],
-                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+            summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
+                           plain_ms=totals["plain_ms"], bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+        x = rows_input(NONFINITE_SHAPE, dtype, g, dev)
+        nonfinite_(fused.channel_rows(x), 4)
+        c = x.shape[1]
+        s = torch.rand(c, generator=g, device=dev) + 0.5
+        b = torch.randn(c, generator=g, device=dev) * 0.5
+        ref = fused.scale_bias_relu_reference(x, s, b)
+        check(bool(ref.isnan().any() and ref.isinf().any()),
+              "the NaN/inf case has no NaN or inf")
+        check_exact(fn(x, s, b), ref,
+                    f"scale_bias_relu NaN/inf {NONFINITE_SHAPE} {dtype}")
+        print(f"kernel scale_bias_relu NaN/inf {NONFINITE_SHAPE} "
+              f"{str(dtype)[6:]}: {int(ref.isnan().sum())} NaN and "
+              f"{int(ref.isinf().sum())} inf in the plain output; the "
+              "kernel's equal (rtol 0 atol 0, NaN where NaN)", flush=True)
     return summary
 
 
@@ -384,7 +472,7 @@ def phase_channel_stats(fused, dev):
             rel_var = ((var - rvar).abs() / rvar.abs().clamp_min(1e-12))
             worst = int(rel_var.argmax())
             err = max(err_s.max().item(), err_ss.max().item())
-            vec = vector_width(fn, (xs[0],), fn, dtype)
+            vec = vector_width(fn, (xs[0],), fn, 16 // dtype.itemsize)
             per_call, how = launches_per_call(fn, (xs[0],), fn)
             arg_sets = [(x,) for x in xs]
             ms = device_ms(fn, arg_sets)
@@ -443,15 +531,15 @@ def phase_channel_stats(fused, dev):
 
 
 def phase_sbr_backward(fused, dev):
-    """K2's backward at the nine scale_bias_relu sites, a ragged M, C = 100
-    and a misaligned view, in f32 and bf16, as phase_channel_stats; returns
-    the f32 summary over the sites."""
+    """K2's backward at the nine scale_bias_relu sites and K2_EXTRA, in f32
+    and bf16, as phase_channel_stats, then a NaN/inf case; returns the f32
+    summary over the sites."""
     gen = torch.Generator(device=dev).manual_seed(3)
     summary = None
     fn = fused.scale_bias_relu_backward
     for dtype in (torch.float32, torch.bfloat16):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for shape, sites in K2_SITES + K2_BWD_EXTRA:
+        for shape, sites in K2_SITES + K2_EXTRA:
             xs = [rows_input(shape, dtype, gen, dev)]
             n, c = xs[0].numel(), xs[0].shape[1]
             copies = copies_beyond_l2(3 * n * dtype.itemsize)
@@ -474,9 +562,9 @@ def phase_sbr_backward(fused, dev):
             flipped = (dx == 0) != (rdx == 0)
             share = flipped.float().mean().item()
             same = ~flipped
-            err_dx = ((dx.float() - rdx.float()).abs() * same).max().item()
-            magnitude = (gs[0].float().abs().max() * s.abs().max()).item()
-            tol_dx = kernel_tolerance(dtype, magnitude)
+            diff_dx = (dx.float() - rdx.float()).abs() * same
+            err_dx = diff_dx.max().item()
+            ok_dx = bool((diff_dx <= DX_REL[dtype] * rdx.float().abs()).all())
             xr = fused.channel_rows(xs[0]).float()
             gm = fused.channel_rows(gs[0]).float() * fused.channel_rows(
                 rdx != 0)
@@ -485,7 +573,7 @@ def phase_sbr_backward(fused, dev):
             err_ds, err_db = (ds - rds).abs(), (db - rdb).abs()
             err = max(err_dx, err_ds.max().item(), err_db.max().item())
             args0 = (xs[0], gs[0], s, b)
-            vec = vector_width(fn, args0, fn, dtype)
+            vec = vector_width(fn, args0, fn, 16 // dtype.itemsize)
             per_call, how = launches_per_call(fn, args0, fn)
             arg_sets = [(x, gg, s, b) for x, gg in zip(xs, gs)]
             ms = device_ms(fn, arg_sets)
@@ -496,7 +584,7 @@ def phase_sbr_backward(fused, dev):
             print(f"kernel scale_bias_relu_backward {shape} {str(dtype)[6:]} "
                   f"{_sites_label(sites)}: mask differs at {share:.3g} of dx "
                   f"(limit {MASK_SHARE}); max_abs_err dx elsewhere "
-                  f"{err_dx:.3g} (tol {tol_dx:.3g}) dscale "
+                  f"{err_dx:.3g} (tol {DX_REL[dtype]} of |dx|) dscale "
                   f"{err_ds.max().item():.3g} dbias "
                   f"{err_db.max().item():.3g} (tol 1e-5 of the sums of "
                   f"magnitudes); bitwise repeatable; {nbytes} bytes; kernel "
@@ -506,7 +594,7 @@ def phase_sbr_backward(fused, dev):
                   flush=True)
             check(per_call == 1, f"scale_bias_relu_backward {shape} {dtype}: "
                                  f"{per_call} launches in one call")
-            check(share <= MASK_SHARE and err_dx <= tol_dx,
+            check(share <= MASK_SHARE and ok_dx,
                   f"scale_bias_relu_backward {shape} {dtype}: dx differs")
             check(bool((err_ds <= tol_ds).all() and (err_db <= tol_db).all()),
                   f"scale_bias_relu_backward {shape} {dtype}: dscale or "
@@ -537,6 +625,31 @@ def phase_sbr_backward(fused, dev):
             summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
                            plain_ms=totals["plain_ms"], bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
+        x = rows_input(NONFINITE_SHAPE, dtype, gen, dev)
+        gg = rows_input(NONFINITE_SHAPE, dtype, gen, dev)
+        nonfinite_(fused.channel_rows(x), 4)
+        nonfinite_(fused.channel_rows(gg), 8)
+        c = x.shape[1]
+        s = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.5
+        got = fn(x, gg, s, b)
+        want = fused.scale_bias_relu_backward_reference(x, gg, s, b)
+        check(all(bool(w.isnan().any()) for w in want),
+              "the NaN/inf case gives no NaN in dx, dscale or dbias")
+        for name, u, w in zip(("dx", "dscale", "dbias"), got, want):
+            check_nonfinite_placed(u, w, f"scale_bias_relu_backward NaN/inf "
+                                         f"{dtype} {name}")
+        fin = want[0].isfinite()
+        check(bool(((got[0].float() - want[0].float()).abs()
+                    <= DX_REL[dtype] * want[0].float().abs())[fin].all()),
+              f"scale_bias_relu_backward NaN/inf {dtype}: finite dx differs")
+        print(f"kernel scale_bias_relu_backward NaN/inf {NONFINITE_SHAPE} "
+              f"{str(dtype)[6:]}: NaN in dx {int(want[0].isnan().sum())}, "
+              f"dscale {int(want[1].isnan().sum())}, dbias "
+              f"{int(want[2].isnan().sum())} of {c} channels, inf in dx "
+              f"{int(want[0].isinf().sum())}, dscale "
+              f"{int(want[1].isinf().sum())}; the kernel's at the same "
+              f"places, finite dx within {DX_REL[dtype]} of |dx|", flush=True)
     return summary
 
 
@@ -837,7 +950,7 @@ class ReluTape:
     every other difference to the check. Inside ``with tape.record(fused)``
     (card) or ``tape.replay(fused)`` (CPU) ``torch.relu`` and the
     scale_bias_relu Function's forward and backward use the tape; the
-    mask of scale_bias_relu is that of its backward kernel,
+    mask of scale_bias_relu is that of its kernels, forward and backward,
     round(round(x*scale) + bias) > 0."""
 
     def __init__(self):
@@ -1155,7 +1268,8 @@ def main() -> int:
                   f"and loads {spills} bytes", flush=True)
             check(spills == 0, f"{kernel} spills {spills} bytes")
 
-    summary = phase_kernels(fused, dev)
+    summary = {"normalize_u8": phase_normalize_u8(fused, dev),
+               "scale_bias_relu": phase_sbr_forward(fused, dev)}
     summary["channel_stats"] = phase_channel_stats(fused, dev)
     summary["scale_bias_relu_backward"] = phase_sbr_backward(fused, dev)
     # each main path is driven with the counts set to 0 just before it and

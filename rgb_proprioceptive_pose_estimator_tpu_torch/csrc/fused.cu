@@ -13,16 +13,39 @@
 // Both are bound by device-memory bytes: every input byte is read once and
 // every output byte written once, and there are two flops per element, so
 // the least time on an H100 is bytes / 3.35 TB/s. The TPU kernels viewed the
-// data as (rows, lcm(C, 128)) lanes to broadcast the per-channel constants;
-// here each thread keeps one channel for its whole life instead: the
-// grid-stride loop's stride is a multiple of C, so a thread's channel, and
-// with it its scale and shift, is fixed and held in registers, and no index
-// is divided inside the loop. Neighbouring threads touch neighbouring
-// addresses, so every warp access is coalesced, whatever C is.
+// data as (rows, lcm(C, 128)) lanes to broadcast the per-channel constants.
+// The first design here kept one channel per thread and moved one element
+// per access (a warp load moved 32 bytes of K1's input, 64 or 128 of K2's),
+// and reached 43-66% of the bound: load instructions, not bytes, set the
+// pace, as they did in the reductions below. This design moves 16 bytes per
+// access and keeps each thread's constants fixed, so they sit in registers
+// and no index is divided inside a loop:
+//   - rppe_scale_bias_relu: the reductions' mapping (block (tx, ty), grid
+//     (tiles, groups), planned by ops/fused.py _sbr_forward_plan). A thread
+//     owns a chunk of V neighbouring channels (V = 4 f32 as float4, 8 bf16
+//     as uint4), loads their scales and biases once, and walks rows ty
+//     apart in its block's group with U = 4 rows of loads in flight before
+//     the stores; offsets inside a group are 32-bit.
+//   - rppe_normalize_u8: a thread reads 16 input bytes as one uint4 and
+//     writes 16 outputs as four float4 or two uint4 of bf16 (a warp passes
+//     its 512 bytes through shared memory, so that each store instruction
+//     writes 512 contiguous bytes). The loop stride, in 16-byte chunks, is
+//     a multiple of 32 and of nstats / gcd(16, nstats), so a thread's phase
+//     in the period of constants is fixed and its 16 scale and shift pairs
+//     are gathered into registers once (planned by ops/fused.py
+//     _normalize_plan).
+// Where C is not a multiple of V, or a pointer is not 16-byte aligned, the
+// same kernels run one element per access (K2 with V = 1; K1's one-element
+// loop over the whole tensor), and K1's one-element loop also takes the
+// n % 16 elements past the last whole chunk, in the same launch.
 //
-// What this simple design leaves for later: 16-byte vector loads and stores
-// (a thread now moves 1, 2 or 4 bytes per access, so small accesses, not
-// bytes, may limit it), and fusing the epilogue into the convolution that
+// Both round x*s + b twice, __fmul_rn then __fadd_rn, as the plain versions
+// do (nvcc would otherwise contract it into one fused multiply-add), so each
+// equals its plain version exactly and K2's ReLU decision is its backward's
+// mask bit for bit. K2's ReLU writes pre unless pre <= 0, so NaN stays NaN,
+// as in torch.clamp_min and jnp.maximum (fmaxf would return 0).
+//
+// What is left for later: fusing the epilogue into the convolution that
 // writes x, which would save a whole read and write of the activation.
 //
 // Two per-channel reductions of the training path follow, both over
@@ -73,7 +96,9 @@
 // last. Where C is not a multiple of V, or a pointer is not 16-byte
 // aligned, the same kernels run with V = 1. The mask of the backward is
 // computed as round(round(x*scale) + bias), without the fused multiply-add,
-// so that it is the plain version's mask bit for bit.
+// so that it is the plain version's mask (and the forward's ReLU decision)
+// bit for bit, and g is multiplied by it, as _sbr_bwd does, not selected: a
+// NaN or inf g at a masked element gives NaN in dx and in its channel's sums.
 //
 // The tickets are the caller's: ops/fused.py keeps one zeroed int32 buffer
 // per device and stream. Launches on one stream run one after another, and
@@ -90,8 +115,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+// Threads of a rppe_normalize_u8 block, and the blocks of it an SM holds at
+// once (ops/fused.py: _NORM_THREADS, _NORM_BLOCKS_PER_SM): the register cap
+// of __launch_bounds__ keeps the planned grid resident in one wave.
+constexpr int kNormThreads = 256;
+constexpr int kNormBlocksPerSm = 3;
 // Most per-channel constants rppe_normalize_u8 takes; ops/fused.py holds the
 // same number as MAX_STATS.
 constexpr int kMaxStats = 64;
@@ -110,56 +138,21 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// The loop stride: all threads of the grid, rounded down to a multiple of c.
-// Threads at or above it stay idle.
-__device__ __forceinline__ int64_t channel_stride(int c) {
-  const int64_t total = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  return total - total % c;
-}
-
-template <typename Out>
-__global__ void normalize_u8_kernel(const uint8_t* __restrict__ x,
-                                    Out* __restrict__ y, int64_t n,
-                                    int nstats, NormalizeStats st) {
-  const int64_t stride = channel_stride(nstats);
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= stride) return;
-  // the image's C is a multiple of nstats, so element i has constants i % nstats
-  const int c = static_cast<int>(tid % nstats);
-  const float scale = st.scale[c];
-  const float shift = st.shift[c];
-  for (int64_t i = tid; i < n; i += stride) {
-    store_f32(y + i, static_cast<float>(x[i]) * scale + shift);
-  }
-}
-
-template <typename T>
-__global__ void scale_bias_relu_kernel(const T* __restrict__ x,
-                                       T* __restrict__ y,
-                                       const float* __restrict__ scale,
-                                       const float* __restrict__ bias,
-                                       int64_t n, int channels) {
-  const int64_t stride = channel_stride(channels);
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= stride) return;
-  const int c = static_cast<int>(tid % channels);
-  const float s = scale[c];
-  const float b = bias[c];
-  for (int64_t i = tid; i < n; i += stride) {
-    store_f32(y + i, fmaxf(load_f32(x + i) * s + b, 0.0f));
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The two reductions. A block of kRedThreads threads is tx x (kRedThreads /
-// tx): threadIdx.x picks a chunk of V neighbouring channels, threadIdx.y a
-// row slot. The grid is (tiles, groups): blockIdx.x picks a tile of tx
-// chunks, blockIdx.y a group of rows_per_group neighbouring rows. The plan
-// (V, tx, tiles, groups, rows_per_group) comes from ops/fused.py's
+// K2's forward and the two reductions walk x (m, c) by rows. A block of
+// kRowThreads threads is tx x (kRowThreads / tx): threadIdx.x picks a chunk
+// of V neighbouring channels, threadIdx.y a row slot. The grid is (tiles,
+// groups): blockIdx.x picks a tile of tx chunks, blockIdx.y a group of
+// rows_per_group neighbouring rows. The plan (V, tx, tiles, groups,
+// rows_per_group) comes from ops/fused.py's _sbr_forward_plan or
 // _reduction_plan.
 
-constexpr int kRedThreads = 512;
-constexpr int kRedWarps = kRedThreads / 32;
+constexpr int kRowThreads = 512;
+constexpr int kRowWarps = kRowThreads / 32;
+// blocks of K2's forward an SM holds at once (ops/fused.py
+// _SBR_BLOCKS_PER_SM): the register cap of __launch_bounds__ keeps the
+// planned grid resident in one wave
+constexpr int kSbrBlocksPerSm = 2;
 constexpr int kFoldUnroll = 16;  // partials a folding thread loads at once
 
 // V channels of one row as one access: 16 bytes (float4 of f32, uint4 of
@@ -222,6 +215,189 @@ struct Vec<__nv_bfloat16, 8> {
   }
 };
 
+// x * s + b rounded twice, as the plain versions compute it: nvcc never
+// contracts __fmul_rn and __fadd_rn into a fused multiply-add.
+__device__ __forceinline__ float mul_add_rn(float x, float s, float b) {
+  return __fadd_rn(__fmul_rn(x, s), b);
+}
+
+// The ReLU of torch.clamp_min(pre, 0) and jnp.maximum(pre, 0): NaN stays NaN
+// (NaN <= 0 is false), +inf stays, -inf becomes 0.
+__device__ __forceinline__ float relu_keep_nan(float pre) {
+  return pre <= 0.0f ? 0.0f : pre;
+}
+
+// W input bytes as one shared-memory read: 4 (f32 outputs) or 8 (bf16).
+template <int W>
+struct Bytes;
+template <>
+struct Bytes<4> {
+  using Raw = unsigned;
+  static __device__ __forceinline__ unsigned byte(Raw v, int r) {
+    return (v >> (8 * r)) & 0xffu;
+  }
+};
+template <>
+struct Bytes<8> {
+  using Raw = uint2;
+  static __device__ __forceinline__ unsigned byte(Raw v, int r) {
+    return ((r < 4 ? v.x : v.y) >> (8 * (r % 4))) & 0xffu;
+  }
+};
+
+// K1. The vector loop: thread t < vec_stride takes the 16-byte chunks t,
+// t + vec_stride, ... below n_vec, U at a time, so a warp's lanes read 32
+// neighbouring chunks, 512 bytes, with one uint4 load each. The warp stages
+// them in shared memory and writes their outputs with Q = 4 (f32) or 2
+// (bf16) stores of 16 bytes per lane, store q of lane l taking input bytes
+// q * 32 W + l W .. + W of the 512: each store instruction writes 512
+// contiguous bytes. (Each lane writing the outputs of its own chunk would
+// put neighbouring lanes 64 or 32 bytes apart, so that every store
+// instruction half-filled its 32-byte sectors.) The one-element loop: the
+// thread ts-th from the grid's end, ts < scalar_stride, takes the elements
+// begin + ts, begin + ts + scalar_stride, ... below n, begin = 16 n_vec, U at
+// a time. The host function checks that
+// vec_stride is a multiple of 32 and of nstats / gcd(16, nstats), and
+// scalar_stride one of nstats, so that warps are whole and each thread's
+// constants are fixed in both loops.
+template <typename Out>
+__global__ void __launch_bounds__(kNormThreads, kNormBlocksPerSm)
+normalize_u8_kernel(const uint8_t* __restrict__ x, Out* __restrict__ y,
+                    int64_t n, int64_t n_vec, int vec_stride,
+                    int scalar_stride, int nstats,
+                    const __grid_constant__ NormalizeStats st) {
+  constexpr int U = 4;                  // accesses in flight at once
+  constexpr int W = 16 / sizeof(Out);   // outputs of one 16-byte store
+  constexpr int Q = 16 / W;             // stores per 16 input bytes
+  using OV = Vec<Out, W>;
+  using In = typename Bytes<W>::Raw;
+  __shared__ float scale_s[kMaxStats], shift_s[kMaxStats];
+  __shared__ uint4 stage[kNormThreads];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x < nstats) {
+    scale_s[threadIdx.x] = st.scale[threadIdx.x];
+    shift_s[threadIdx.x] = st.shift[threadIdx.x];
+  }
+  __syncthreads();
+  // warp-uniform: vec_stride is a multiple of 32, so a warp is all in or
+  // all out
+  if (t - lane < vec_stride && t - lane < n_vec) {
+    // the constants of the bytes this lane stores, the same on every trip
+    // (32-bit: the host function keeps 16 * threads within INT_MAX)
+    float s[Q][W], b[Q][W];
+    const int base = 16 * (t - lane) + lane * W;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      int k = (base + q * 32 * W) % nstats;
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        s[q][r] = scale_s[k];
+        b[q][r] = shift_s[k];
+        k = k + 1 == nstats ? 0 : k + 1;
+      }
+    }
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    const uint8_t* staged = reinterpret_cast<const uint8_t*>(
+        stage + (threadIdx.x - lane));
+    const int64_t step = vec_stride;
+    for (int64_t i = t; i - lane < n_vec; i += U * step) {
+      uint4 raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i + u * step < n_vec) raw[u] = xv[i + u * step];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t first = i - lane + u * step;   // the warp's first chunk
+        if (first < n_vec) {                          // warp-uniform
+          stage[threadIdx.x] = raw[u];
+          __syncwarp();
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int off = q * 32 * W + lane * W;    // byte of the 512
+            if (first + off / 16 < n_vec) {
+              const In v = *reinterpret_cast<const In*>(staged + off);
+              float f[W];
+#pragma unroll
+              for (int r = 0; r < W; ++r)
+                f[r] = mul_add_rn(static_cast<float>(Bytes<W>::byte(v, r)),
+                                  s[q][r], b[q][r]);
+              OV::store(y + 16 * first + off, f);
+            }
+          }
+          __syncwarp();                               // stage is reused
+        }
+      }
+    }
+  }
+  // counted from the grid's last thread, so that the tail after the whole
+  // chunks falls to threads the vector loop leaves idle where there are any
+  const int ts = gridDim.x * blockDim.x - 1 - t;
+  const int64_t begin = 16 * n_vec;
+  if (ts < scalar_stride && begin + ts < n) {
+    const int k = static_cast<int>((begin + ts) % nstats);
+    const float s = scale_s[k];
+    const float b = shift_s[k];
+    const int64_t step = scalar_stride;
+    for (int64_t e = begin + ts; e < n; e += U * step) {
+      uint8_t raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (e + u * step < n) raw[u] = x[e + u * step];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (e + u * step < n)
+          store_f32(y + e + u * step, mul_add_rn(static_cast<float>(raw[u]), s, b));
+    }
+  }
+}
+
+// K2's forward. The thread's rows are row slot ty, ty + ty_count, ... of its
+// block's group; offsets within the group fit in 32 bits (rows_per_group * c
+// <= INT_MAX, checked by the host function).
+template <typename T, int V>
+__global__ void __launch_bounds__(kRowThreads, kSbrBlocksPerSm)
+scale_bias_relu_kernel(const T* __restrict__ x, T* __restrict__ y,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, int64_t m, int c,
+                       int rows_per_group) {
+  constexpr int U = 4;             // rows whose loads are in flight at once
+  using VT = Vec<T, V>;
+  const int chunk = blockIdx.x * blockDim.x + threadIdx.x;
+  if (chunk * V >= c) return;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * rows_per_group;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(rows_per_group), m - row0));
+  const int step = blockDim.y;
+  float s[V], b[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    s[i] = scale[chunk * V + i];
+    b[i] = bias[chunk * V + i];
+  }
+  const int64_t at = row0 * c + chunk * V;
+  const T* xb = x + at;
+  T* yb = y + at;
+  for (int r = threadIdx.y; r < rows; r += U * step) {
+    typename VT::Raw raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * step;
+      if (rr < rows) raw[u] = VT::load(xb + rr * c);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * step;
+      if (rr < rows) {
+        float v[V];
+        VT::unpack(raw[u], v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = relu_keep_nan(mul_add_rn(v[i], s[i], b[i]));
+        VT::store(yb + rr * c, v);
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ void fence_acq_rel_gpu() {
   asm volatile("fence.acq_rel.gpu;" ::: "memory");
 }
@@ -237,8 +413,8 @@ __device__ __forceinline__ void finish_reduction(
     float (&acc)[2 * V], int c, float* __restrict__ part,
     int* __restrict__ tickets, float* __restrict__ out0,
     float* __restrict__ out1) {
-  __shared__ float red[(kRedWarps * 32 * 2 * V > kRedThreads)
-                           ? kRedWarps * 32 * 2 * V : kRedThreads];
+  __shared__ float red[(kRowWarps * 32 * 2 * V > kRowThreads)
+                           ? kRowWarps * 32 * 2 * V : kRowThreads];
   __shared__ bool is_last;
   const int tx = threadIdx.x;
   const int t = threadIdx.y * blockDim.x + tx;
@@ -263,7 +439,7 @@ __device__ __forceinline__ void finish_reduction(
     const int k = q * V + lc % V;
     const int chunk = lc / V;
     float s = 0.0f;
-    for (int w = 0; w < kRedWarps; ++w) s += red[(w * blockDim.x + chunk) * 2 * V + k];
+    for (int w = 0; w < kRowWarps; ++w) s += red[(w * blockDim.x + chunk) * 2 * V + k];
     if (ch0 + lc < c)
       part[(static_cast<int64_t>(q) * groups + blockIdx.y) * c + ch0 + lc] = s;
   }
@@ -285,7 +461,7 @@ __device__ __forceinline__ void finish_reduction(
   // 3. the last block of the tile: thread (slice, pair) sums the groups
   // slice, slice + slices, ... in order; then the slices fold in order
   const int pairs = 2 * tile_ch;                      // a power of two <= 512
-  const int slices = kRedThreads / pairs;
+  const int slices = kRowThreads / pairs;
   const int p = t % pairs, slice = t / pairs;
   const int q = p / tile_ch, ch = ch0 + p % tile_ch;
   float s = 0.0f;
@@ -316,7 +492,7 @@ __device__ __forceinline__ void finish_reduction(
 // row slot ty, ty + ty_count, ...; offsets within the group fit in 32 bits
 // (rows_per_group * c <= INT_MAX, checked by the host function).
 template <typename T, int V>
-__global__ void __launch_bounds__(kRedThreads)
+__global__ void __launch_bounds__(kRowThreads)
 channel_stats_kernel(const T* __restrict__ x, int64_t m, int c,
                      int rows_per_group, float* __restrict__ part,
                      int* __restrict__ tickets, float* __restrict__ sum,
@@ -357,7 +533,7 @@ channel_stats_kernel(const T* __restrict__ x, int64_t m, int c,
 }
 
 template <typename T, int V>
-__global__ void __launch_bounds__(kRedThreads)
+__global__ void __launch_bounds__(kRowThreads)
 sbr_backward_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, int64_t m, int c,
@@ -403,9 +579,11 @@ sbr_backward_kernel(const T* __restrict__ x, const T* __restrict__ g,
           VT::unpack(rg[u], gv);
 #pragma unroll
           for (int i = 0; i < V; ++i) {
-            // two roundings, as the plain version: the mask is the same bit
-            const float pre = __fadd_rn(__fmul_rn(xv[i], s[i]), b[i]);
-            const float gm = pre > 0.0f ? gv[i] : 0.0f;
+            // two roundings, as the plain version and the forward: the mask
+            // is the same bit; a multiply, not a select, as _sbr_bwd, so a
+            // NaN or inf g at a masked element gives NaN
+            const float pre = mul_add_rn(xv[i], s[i], b[i]);
+            const float gm = gv[i] * (pre > 0.0f ? 1.0f : 0.0f);
             d[i] = gm * s[i];
             acc[i] += gm * xv[i];
             acc[V + i] += gm;
@@ -420,11 +598,11 @@ sbr_backward_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 // The plan a host function was given, checked: any mistake returns
 // cudaErrorInvalidValue before anything is launched.
-struct ReductionPlan {
+struct RowPlan {
   int vec, tx, tiles, groups, rows_per_group;
 };
 
-bool plan_ok(const ReductionPlan& p, int64_t m, int c, int is_bf16,
+bool plan_ok(const RowPlan& p, int64_t m, int c, int is_bf16,
              std::initializer_list<const void*> vector_ptrs) {
   if (m < 1 || c < 1) return false;
   if (!(p.vec == 1 || p.vec == (is_bf16 ? 8 : 4))) return false;
@@ -444,19 +622,37 @@ bool plan_ok(const ReductionPlan& p, int64_t m, int c, int is_bf16,
   return true;
 }
 
-// Enough blocks to fill the card (kBlocksPerSm per SM), fewer for small n,
-// and never fewer threads than channels.
-cudaError_t grid_for(int64_t n, int channels, int device, int* blocks) {
-  int sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  if (want > cap) want = cap;
-  const int64_t least = (channels + kThreads - 1) / kThreads;
-  if (want < least) want = least;
-  *blocks = static_cast<int>(want);
-  return cudaSuccess;
+// The plan of rppe_normalize_u8, checked as plan_ok checks a row plan.
+bool normalize_plan_ok(const void* x, const void* y, int64_t n, int nstats,
+                       int blocks, int64_t n_vec, int vec_stride,
+                       int scalar_stride) {
+  if (n < 1 || nstats < 1 || nstats > kMaxStats) return false;
+  if (blocks < 1 || 16 * static_cast<int64_t>(blocks) * kNormThreads > INT32_MAX)
+    return false;
+  const int64_t threads = static_cast<int64_t>(blocks) * kNormThreads;
+  if (scalar_stride < 1 || scalar_stride > threads || scalar_stride % nstats)
+    return false;
+  if (n_vec < 0 || 16 * n_vec > n) return false;
+  if (n_vec > 0) {
+    int g = 16, r = nstats;                 // gcd(16, nstats)
+    while (r) { const int q = g % r; g = r; r = q; }
+    if (vec_stride < 32 || vec_stride > threads || vec_stride % 32 ||
+        vec_stride % (nstats / g))
+      return false;
+    if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16)
+      return false;
+  }
+  return true;
+}
+
+template <typename T, int V>
+void launch_sbr_forward(dim3 grid, dim3 block, cudaStream_t s, const void* x,
+                        void* y, const void* scale, const void* bias,
+                        int64_t m, int c, int rows_per_group) {
+  scale_bias_relu_kernel<T, V><<<grid, block, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), m, c,
+      rows_per_group);
 }
 
 template <typename T, int V>
@@ -489,11 +685,17 @@ extern "C" {
 
 // x: n uint8 values, channels innermost, the channel count a multiple of
 // nstats. y: n values of f32 (out_bf16 == 0) or bf16. scale, shift: nstats
-// host floats (nstats <= kMaxStats), passed to the kernel by value.
+// host floats (nstats <= kMaxStats), passed to the kernel by value. The plan
+// of ops/fused.py:_normalize_plan: blocks of kNormThreads; the first n_vec
+// 16-byte chunks go through the vector loop (x and y 16-byte aligned) with
+// vec_stride threads, the rest one element at a time with scalar_stride.
 int rppe_normalize_u8(const void* x, void* y, int64_t n, int nstats,
                       const float* scale, const float* shift, int out_bf16,
-                      int device, void* stream) {
-  if (nstats < 1 || nstats > kMaxStats) return static_cast<int>(cudaErrorInvalidValue);
+                      int blocks, int64_t n_vec, int vec_stride,
+                      int scalar_stride, int device, void* stream) {
+  if (!normalize_plan_ok(x, y, n, nstats, blocks, n_vec, vec_stride,
+                         scalar_stride))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   NormalizeStats st;
@@ -501,44 +703,46 @@ int rppe_normalize_u8(const void* x, void* y, int64_t n, int nstats,
     st.scale[c] = scale[c];
     st.shift[c] = shift[c];
   }
-  int blocks = 0;
-  err = grid_for(n, nstats, device, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* xin = static_cast<const uint8_t*>(x);
   if (out_bf16) {
-    normalize_u8_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        xin, static_cast<__nv_bfloat16*>(y), n, nstats, st);
+    normalize_u8_kernel<__nv_bfloat16><<<blocks, kNormThreads, 0, s>>>(
+        xin, static_cast<__nv_bfloat16*>(y), n, n_vec, vec_stride,
+        scalar_stride, nstats, st);
   } else {
-    normalize_u8_kernel<float><<<blocks, kThreads, 0, s>>>(
-        xin, static_cast<float*>(y), n, nstats, st);
+    normalize_u8_kernel<float><<<blocks, kNormThreads, 0, s>>>(
+        xin, static_cast<float*>(y), n, n_vec, vec_stride, scalar_stride,
+        nstats, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: n values of f32 (is_bf16 == 0) or bf16 laid out as (n / channels,
-// channels). scale, bias: channels device floats.
+// x, y: (m, c) values of f32 (is_bf16 == 0) or bf16, channels innermost.
+// scale, bias: c device floats. The plan of ops/fused.py:_sbr_forward_plan:
+// vec (1, or 16 bytes of x's dtype), tx, tiles, groups, rows_per_group.
 int rppe_scale_bias_relu(const void* x, void* y, const void* scale,
-                         const void* bias, int64_t n, int channels,
-                         int is_bf16, int device, void* stream) {
-  if (channels < 1) return static_cast<int>(cudaErrorInvalidValue);
+                         const void* bias, int64_t m, int c, int is_bf16,
+                         int vec, int tx, int tiles, int groups,
+                         int rows_per_group, int device, void* stream) {
+  const RowPlan plan{vec, tx, tiles, groups, rows_per_group};
+  if (!plan_ok(plan, m, c, is_bf16, {x, y}))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = grid_for(n, channels, device, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  if (is_bf16) {
-    scale_bias_relu_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        sc, bi, n, channels);
-  } else {
-    scale_bias_relu_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), sc, bi, n,
-        channels);
-  }
+  const dim3 grid(tiles, groups), block(tx, kRowThreads / tx);
+  if (is_bf16 && vec == 8)
+    launch_sbr_forward<__nv_bfloat16, 8>(grid, block, s, x, y, scale, bias, m,
+                                         c, rows_per_group);
+  else if (is_bf16)
+    launch_sbr_forward<__nv_bfloat16, 1>(grid, block, s, x, y, scale, bias, m,
+                                         c, rows_per_group);
+  else if (vec == 4)
+    launch_sbr_forward<float, 4>(grid, block, s, x, y, scale, bias, m, c,
+                                 rows_per_group);
+  else
+    launch_sbr_forward<float, 1>(grid, block, s, x, y, scale, bias, m, c,
+                                 rows_per_group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -554,13 +758,13 @@ int rppe_channel_stats(const void* x, int64_t m, int c, int is_bf16, int vec,
                        int tx, int tiles, int groups, int rows_per_group,
                        void* part, void* tickets, void* sum, void* sumsq,
                        int device, void* stream) {
-  const ReductionPlan plan{vec, tx, tiles, groups, rows_per_group};
+  const RowPlan plan{vec, tx, tiles, groups, rows_per_group};
   if (!plan_ok(plan, m, c, is_bf16, {x}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles, groups), block(tx, kRedThreads / tx);
+  const dim3 grid(tiles, groups), block(tx, kRowThreads / tx);
   if (is_bf16 && vec == 8)
     launch_channel_stats<__nv_bfloat16, 8>(grid, block, s, x, m, c,
                                            rows_per_group, part, tickets, sum,
@@ -587,13 +791,13 @@ int rppe_scale_bias_relu_backward(const void* x, const void* g,
                                   int rows_per_group, void* dx, void* part,
                                   void* tickets, void* dscale, void* dbias,
                                   int device, void* stream) {
-  const ReductionPlan plan{vec, tx, tiles, groups, rows_per_group};
+  const RowPlan plan{vec, tx, tiles, groups, rows_per_group};
   if (!plan_ok(plan, m, c, is_bf16, {x, g, dx}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles, groups), block(tx, kRedThreads / tx);
+  const dim3 grid(tiles, groups), block(tx, kRowThreads / tx);
   if (is_bf16 && vec == 8)
     launch_sbr_backward<__nv_bfloat16, 8>(grid, block, s, x, g, scale, bias, m,
                                           c, rows_per_group, dx, part, tickets,

@@ -13,17 +13,20 @@ their plain PyTorch versions.
 A wrapper checks its inputs the same way on every device. A tensor on the
 CPU then goes to the plain version (``*_reference``); a CUDA tensor goes
 to the kernel, or the wrapper raises: it never falls back. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``. The two reductions
-are one launch each and deterministic: the same input gives
-bitwise-equal sums. Their launches with one element per access (C not a
-multiple of 16 bytes' worth, or a pointer not 16-byte aligned) are also
-counted in ``<wrapper>.scalar_launches``.
+counts its kernel launches in ``<wrapper>.launches``; every call is one
+launch. The kernels move 16 bytes per access; a launch that moves one
+element per access instead (C not a multiple of 16 bytes' worth, or a
+pointer not 16-byte aligned) is also counted in
+``<wrapper>.scalar_launches``. normalize_u8 and scale_bias_relu equal
+their plain versions exactly (NaN where they have NaN); the two
+reductions are deterministic: the same input gives bitwise-equal sums.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -40,13 +43,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fptr = ctypes.POINTER(ctypes.c_float)
+    # blocks, n_vec, vec_stride, scalar_stride
     lib.rppe_normalize_u8.argtypes = [ptr, ptr, i64, i32, fptr, fptr, i32,
-                                      i32, ptr]
+                                      i32, i64, i32, i32, i32, ptr]
     lib.rppe_normalize_u8.restype = i32
-    lib.rppe_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
-                                         i32, ptr]
-    lib.rppe_scale_bias_relu.restype = i32
     plan = [i32] * 5                  # vec, tx, tiles, groups, rows
+    lib.rppe_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
+                                         *plan, i32, ptr]
+    lib.rppe_scale_bias_relu.restype = i32
     lib.rppe_channel_stats.argtypes = [ptr, i64, i32, i32, *plan, ptr, ptr,
                                        ptr, ptr, i32, ptr]
     lib.rppe_channel_stats.restype = i32
@@ -122,17 +126,22 @@ def channel_rows(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-# threads of a reduction block (kRedThreads in csrc/fused.cu); the rows a
-# thread takes per loop trip at most (U: 8 in channel_stats, 4 in the
-# backward); blocks per SM the plan aims for; partials a thread of the
-# folding block reads at most; CUDA's grid.y limit
-_RED_THREADS, _RED_UNROLL, _RED_BLOCKS_PER_SM = 512, 8, 2
+# threads of a block that walks rows (kRowThreads in csrc/fused.cu); the
+# rows a reduction thread takes per loop trip at most (U: 8 in
+# channel_stats, 4 in the backward); reduction blocks per SM the plan aims
+# for; partials a thread of the folding block reads at most; CUDA's grid.y
+# limit
+_ROW_THREADS, _RED_UNROLL, _RED_BLOCKS_PER_SM = 512, 8, 2
 _FOLD_LOADS, _MAX_GROUPS = 32, 65535
 # channels of a tile at most: a wide C is cut into more tiles, each folded
 # by its own last block, so that more blocks run without a longer fold (a
 # warp still reads whole rows of a tile: two rows of 512 bytes of f32 at
 # C = 64, four of 128 bytes of bf16)
 _RED_TILE_CHANNELS = 64
+# K2's forward: rows of loads in flight per thread (U in csrc/fused.cu), and
+# blocks per SM (kSbrBlocksPerSm: its __launch_bounds__ holds that many
+# resident, so the planned grid runs in one wave)
+_SBR_UNROLL, _SBR_BLOCKS_PER_SM = 4, 2
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -140,12 +149,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-class ReductionPlan(NamedTuple):
-    """The launch of one reduction (channel_stats, scale_bias_relu_backward)
-    over x (m, c): each thread moves ``vec`` neighbouring channels per
-    access, a block is ``block`` = (tx, ty) threads, the grid ``grid`` =
-    (tiles, groups), and group g owns rows [g * rows_per_group, (g + 1) *
-    rows_per_group) of m."""
+class RowPlan(NamedTuple):
+    """The launch of a kernel that walks x (m, c) by rows (scale_bias_relu,
+    channel_stats, scale_bias_relu_backward): each thread moves ``vec``
+    neighbouring channels per access, a block is ``block`` = (tx, ty)
+    threads, the grid ``grid`` = (tiles, groups), and group g owns rows
+    [g * rows_per_group, (g + 1) * rows_per_group) of m."""
     vec: int
     block: Tuple[int, int]
     grid: Tuple[int, int]
@@ -160,14 +169,69 @@ class ReductionPlan(NamedTuple):
         return self.grid[1]
 
 
+def _vector_width(c: int, dtype: torch.dtype, data_ptrs: Sequence[int]) -> int:
+    """16 bytes of ``dtype`` (4 f32 or 8 bf16 channels) where C is a
+    multiple of them and every pointer is 16-byte aligned, else 1."""
+    vec = 16 // dtype.itemsize
+    return 1 if c % vec or any(p % 16 for p in data_ptrs) else vec
+
+
+def _most_rows(c: int, trip: int) -> int:
+    """The most rows of a group whose offsets fit in 32 bits, a multiple of
+    ``trip``."""
+    most = _INT32_MAX // c // trip * trip
+    if most < trip:
+        raise ValueError(f"a kernel over rows takes C up to "
+                         f"{_INT32_MAX // trip}, got {c}")
+    return most
+
+
+def _check_groups(groups: int, rows: int, m: int, c: int) -> None:
+    if groups > _MAX_GROUPS:
+        raise ValueError(f"a kernel over rows takes up to {_MAX_GROUPS * rows} "
+                         f"rows of {c} channels, got {m}")
+
+
+def _sbr_forward_plan(m: int, c: int, dtype: torch.dtype,
+                      data_ptrs: Sequence[int], sms: int) -> RowPlan:
+    """The launch of scale_bias_relu's kernel over x (m, c) of ``dtype``,
+    with x and the output at ``data_ptrs``, on a card of ``sms`` SMs.
+
+    - 16-byte accesses where C and the pointers allow them
+      (_vector_width), else one element.
+    - tx threads cover the chunks of a row (a power of two, at most a
+      warp: a warp reads 512 contiguous bytes where a row is narrower), the
+      other 512 / tx threads of a block take rows.
+    - At most _SBR_BLOCKS_PER_SM blocks per SM, one wave (unless the tiles
+      of one row group are more), so that the large sites fill the card;
+      but every thread gets at least one full loop trip of _SBR_UNROLL
+      rows, so a small site gets fewer blocks and no block without rows
+      (spreading a small site over more blocks with fewer rows each was
+      slower on an H100). A group's rows are a multiple of the rows a block
+      takes per trip, and its offsets fit in 32 bits."""
+    if m < 1 or c < 1:
+        raise ValueError(f"scale_bias_relu needs m, c >= 1, got ({m}, {c})")
+    vec = _vector_width(c, dtype, data_ptrs)
+    chunks = c // vec
+    tx = min(32, 1 << (chunks - 1).bit_length())
+    ty = _ROW_THREADS // tx
+    tiles = _cdiv(chunks, tx)
+    trip = ty * _SBR_UNROLL
+    groups = min(max(1, sms * _SBR_BLOCKS_PER_SM // tiles), _cdiv(m, trip))
+    rows = min(_cdiv(_cdiv(m, groups), trip) * trip, _most_rows(c, trip))
+    groups = _cdiv(m, rows)
+    _check_groups(groups, rows, m, c)
+    return RowPlan(vec, (tx, ty), (tiles, groups), rows)
+
+
 def _reduction_plan(m: int, c: int, dtype: torch.dtype,
-                    data_ptrs: Sequence[int], sms: int) -> ReductionPlan:
+                    data_ptrs: Sequence[int], sms: int) -> RowPlan:
     """The launch of a reduction over x (m, c) of ``dtype``, whose tensors
     (x, and g and dx for the backward) start at ``data_ptrs``, on a card
     of ``sms`` SMs.
 
-    - 16-byte accesses (4 f32 or 8 bf16 channels) where C is a multiple of
-      them and every pointer is 16-byte aligned, else one element.
+    - 16-byte accesses where C and the pointers allow them
+      (_vector_width), else one element.
     - tx threads cover the chunks of a tile of channels (a power of two, at
       most a warp and _RED_TILE_CHANNELS channels), the other (512 / tx)
       threads of a block take rows.
@@ -180,29 +244,22 @@ def _reduction_plan(m: int, c: int, dtype: torch.dtype,
       takes per trip, and its offsets fit in 32 bits."""
     if m < 1 or c < 1:
         raise ValueError(f"a reduction needs m, c >= 1, got ({m}, {c})")
-    vec = 16 // dtype.itemsize
-    if c % vec or any(p % 16 for p in data_ptrs):
-        vec = 1
+    vec = _vector_width(c, dtype, data_ptrs)
     chunks = c // vec
     tx = min(32, _RED_TILE_CHANNELS // vec, 1 << (chunks - 1).bit_length())
-    ty = _RED_THREADS // tx
+    ty = _ROW_THREADS // tx
     tiles = _cdiv(chunks, tx)
     trip = ty * _RED_UNROLL
-    most_rows = _INT32_MAX // c // trip * trip
-    if most_rows < trip:
-        raise ValueError(f"a reduction takes C up to {_INT32_MAX // trip}, "
-                         f"got {c}")
+    most_rows = _most_rows(c, trip)
     # the folding block's threads are (2 sums x tile channels) x slices,
     # and each reads the partials of groups / slices groups
-    slices = _RED_THREADS // (2 * tx * vec)
+    slices = _ROW_THREADS // (2 * tx * vec)
     groups = min(_cdiv(sms * _RED_BLOCKS_PER_SM, tiles), _cdiv(m, trip),
                  _FOLD_LOADS * slices)
     rows = min(_cdiv(_cdiv(m, groups), trip) * trip, most_rows)
     groups = _cdiv(m, rows)
-    if groups > _MAX_GROUPS:
-        raise ValueError(f"a reduction takes up to {_MAX_GROUPS * rows} rows "
-                         f"of {c} channels, got {m}")
-    return ReductionPlan(vec, (tx, ty), (tiles, groups), rows)
+    _check_groups(groups, rows, m, c)
+    return RowPlan(vec, (tx, ty), (tiles, groups), rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,6 +306,59 @@ def normalize_u8_reference(images: torch.Tensor, mean: Sequence[float],
     return (images.float() * s.repeat(reps) + b.repeat(reps)).to(dtype)
 
 
+# threads of a normalize_u8 block (kNormThreads in csrc/fused.cu), blocks
+# per SM (kNormBlocksPerSm: its __launch_bounds__ holds that many resident)
+_NORM_THREADS, _NORM_BLOCKS_PER_SM = 256, 3
+
+
+class NormalizePlan(NamedTuple):
+    """The launch of normalize_u8's kernel over n uint8 values with
+    ``nstats`` constants: ``blocks`` blocks of _NORM_THREADS threads. The
+    first ``n_vec`` 16-byte chunks go through the vector loop, thread t
+    reading chunks t, t + vec_stride, ... (a warp's lanes 32 neighbouring
+    chunks); the other elements one at a time, the thread t-th from the
+    grid's end taking 16 n_vec + t, + scalar_stride, ... (so that the tail
+    falls to threads the vector loop leaves idle). ``vec`` is 16 (the bytes
+    a thread reads per access) or 1 (the whole tensor one element at a
+    time)."""
+    vec: int
+    blocks: int
+    n_vec: int
+    vec_stride: int
+    scalar_stride: int
+
+
+def _normalize_plan(n: int, nstats: int, data_ptrs: Sequence[int],
+                    sms: int) -> NormalizePlan:
+    """The launch of normalize_u8 over n values, with the input and output
+    at ``data_ptrs``, on a card of ``sms`` SMs.
+
+    - 16-byte reads where both pointers are 16-byte aligned: the n // 16
+      whole chunks, and the n % 16 elements after them one at a time in
+      the same launch; else every element one at a time.
+    - As many blocks as one chunk (or element) per thread needs, at most
+      _NORM_BLOCKS_PER_SM per SM (one wave); beyond that a thread takes 4
+      per loop trip (U).
+    - The vector loop's stride is all threads rounded down to a multiple
+      of 32 (whole warps) and of nstats / gcd(16, nstats) (3 for RGB), the
+      one-element loop's to a multiple of nstats: each thread's constants
+      are then fixed."""
+    if n < 1 or not 1 <= nstats <= MAX_STATS:
+        raise ValueError(f"normalize_u8 needs n >= 1 and 1 <= nstats <= "
+                         f"{MAX_STATS}, got n {n}, nstats {nstats}")
+    vec = 16 if n >= 16 and not any(p % 16 for p in data_ptrs) else 1
+    n_vec = n // 16 if vec == 16 else 0
+    accesses = n_vec if vec == 16 else n
+    period = math.lcm(32, nstats // math.gcd(16, nstats))
+    blocks = max(1, min(_cdiv(accesses, _NORM_THREADS),
+                        sms * _NORM_BLOCKS_PER_SM))
+    if vec == 16:
+        blocks = max(blocks, _cdiv(period, _NORM_THREADS))
+    threads = blocks * _NORM_THREADS
+    return NormalizePlan(vec, blocks, n_vec, threads - threads % period,
+                         threads - threads % nstats)
+
+
 def normalize_u8(images: torch.Tensor, mean: Sequence[float],
                  std: Sequence[float],
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -278,17 +388,24 @@ def normalize_u8(images: torch.Tensor, mean: Sequence[float],
     if out.numel() == 0:
         return out
     scale, shift = _normalize_constants(mean, std)
+    plan = _normalize_plan(out.numel(), nstats,
+                           (images.data_ptr(), out.data_ptr()),
+                           _sm_count(images.device))
     lib = _lib()
     err = lib.rppe_normalize_u8(
         images.data_ptr(), out.data_ptr(), out.numel(), nstats,
         (ctypes.c_float * nstats)(*scale), (ctypes.c_float * nstats)(*shift),
-        int(dtype == torch.bfloat16), images.device.index, _stream(images))
+        int(dtype == torch.bfloat16), plan.blocks, plan.n_vec,
+        plan.vec_stride, plan.scalar_stride, images.device.index,
+        _stream(images))
     _check_launch(lib, err, "normalize_u8")
     normalize_u8.launches += 1
+    normalize_u8.scalar_launches += plan.vec == 1
     return out
 
 
 normalize_u8.launches = 0
+normalize_u8.scalar_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -315,13 +432,18 @@ def _sbr_forward(x: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    c = x.shape[1]
+    m = x.numel() // c
+    plan = _sbr_forward_plan(m, c, x.dtype, (x.data_ptr(), out.data_ptr()),
+                             _sm_count(x.device))
     lib = _lib()
     err = lib.rppe_scale_bias_relu(
-        x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.numel(), x.shape[1], int(x.dtype == torch.bfloat16),
-        x.device.index, _stream(x))
+        x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(), m, c,
+        int(x.dtype == torch.bfloat16), plan.vec, plan.block[0], plan.tiles,
+        plan.groups, plan.rows_per_group, x.device.index, _stream(x))
     _check_launch(lib, err, "scale_bias_relu")
     scale_bias_relu.launches += 1
+    scale_bias_relu.scalar_launches += plan.vec == 1
     return out
 
 
@@ -438,6 +560,7 @@ def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
 
 
 scale_bias_relu.launches = 0
+scale_bias_relu.scalar_launches = 0
 scale_bias_relu.grad_layout_copies = 0
 
 

@@ -1,9 +1,12 @@
 """The port's kernel wrappers (ops/fused.py) and their plain versions,
 held against the JAX package's Pallas kernels run in interpret mode on the
-CPU, and the launch plan of the two reductions. The CUDA kernels
-themselves are held against the plain versions on the card
-(tests/test_torch_cuda.py)."""
+CPU (finite and non-finite inputs), and the launch plans of the kernels.
+The CUDA kernels themselves are held against the plain versions on the
+card (tests/test_torch_cuda.py)."""
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,14 +52,31 @@ def test_normalize_u8_reference_matches_pallas(shape, dtype):
                                atol=TOL[dtype])
 
 
+def _with_nonfinite(a: np.ndarray, rs: np.random.RandomState,
+                    channels: int) -> np.ndarray:
+    """a (..., C) with NaN, +inf and -inf at seeded places in its first
+    ``channels`` channels; the other channels stay finite."""
+    a = a.copy()
+    flat = a.reshape(-1, a.shape[-1])
+    for value in (np.nan, np.inf, -np.inf):
+        rows = rs.randint(0, flat.shape[0], 3)
+        flat[rows, rs.randint(0, channels, 3)] = value
+    return a
+
+
+@pytest.mark.parametrize("values", ["finite", "nonfinite"])
 @pytest.mark.parametrize("layout", ["nchw_channels_last", "rows_ragged"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_scale_bias_relu_reference_matches_pallas(layout, dtype):
+def test_scale_bias_relu_reference_matches_pallas(layout, dtype, values):
     rs = np.random.RandomState(1)
     shape = (2, 8, 8, 64) if layout == "nchw_channels_last" else (1500, 24)
     x = rs.randn(*shape).astype(np.float32)
     scale = rs.randn(shape[-1]).astype(np.float32)
     bias = rs.randn(shape[-1]).astype(np.float32)
+    if values == "nonfinite":
+        # NaN stays NaN through the ReLU (jnp.maximum, torch.clamp_min);
+        # inf times a negative scale becomes 0
+        x = _with_nonfinite(x, rs, channels=8)
     xj = jnp.asarray(x).astype(getattr(jnp, dtype))
     ref = np.asarray(jax_scale_bias_relu(xj, jnp.asarray(scale),
                                          jnp.asarray(bias)), np.float32)
@@ -69,12 +89,62 @@ def test_scale_bias_relu_reference_matches_pallas(layout, dtype):
     if len(shape) == 4:
         assert out.is_contiguous(memory_format=torch.channels_last)
         out = out.permute(0, 2, 3, 1)
-    # f32: the oracle of tests/test_pallas.py; bf16: one ulp of the output
+    if values == "nonfinite":
+        assert np.isnan(ref).any() and np.isinf(ref).any()
+    # f32: the oracle of tests/test_pallas.py; bf16: one ulp of the output;
+    # NaN and inf at the same places (assert_allclose's equal_nan)
     if dtype == "float32":
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
     else:
         np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_bias_relu_backward_reference_matches_jax_vjp_on_nonfinite(
+        dtype):
+    """NaN, +inf and -inf in x and in g: the plain backward multiplies g by
+    the mask, as _sbr_bwd does, so a NaN or inf g at a masked element gives
+    NaN in dx and in its channel's dscale and dbias."""
+    rs = np.random.RandomState(5)
+    shape, c_bad = (64, 16), 6
+    x = rs.randn(*shape).astype(np.float32)
+    scale = (rs.rand(shape[1]) + 0.5).astype(np.float32)
+    bias = (rs.randn(shape[1]) * 0.1).astype(np.float32)
+    # no finite pre-activation within 1e-2 of 0: the mask cannot depend on
+    # how either side rounds
+    pre = x * scale + bias
+    x = np.where(np.abs(pre) < 1e-2, x + 0.05, x).astype(np.float32)
+    g = rs.randn(*shape).astype(np.float32)
+    x = _with_nonfinite(x, rs, c_bad)
+    g = _with_nonfinite(g, rs, c_bad)
+    # and a NaN and an inf g where the mask is 0
+    masked = np.argwhere(x * scale + bias < 0)
+    masked = masked[masked[:, 1] < c_bad]
+    g[tuple(masked[0])], g[tuple(masked[1])] = np.nan, np.inf
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(jax_scale_bias_relu, jnp.asarray(x).astype(jdt),
+                     jnp.asarray(scale), jnp.asarray(bias))
+    want = [np.asarray(t, np.float32)
+            for t in vjp(jnp.asarray(g).astype(jdt))]
+    tdt = getattr(torch, dtype)
+    got = fused.scale_bias_relu_backward_reference(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt),
+        torch.from_numpy(scale), torch.from_numpy(bias))
+    assert got[0].dtype == tdt
+    got = [t.float().numpy() for t in got]
+    dx_nan = np.isnan(want[0])
+    assert dx_nan[tuple(masked[0])] and dx_nan[tuple(masked[1])]
+    assert np.isnan(want[1][:c_bad]).any() and np.isnan(want[2][:c_bad]).any()
+    assert np.isfinite(want[2][c_bad:]).all()
+    # the tolerances of tests/test_torch_train.py's VJP test; NaN and inf at
+    # the same places
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got[0], want[0], rtol=tol, atol=tol,
+                               equal_nan=True)
+    for g_sum, w_sum in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g_sum, w_sum, rtol=1e-4, atol=1e-4,
+                                   equal_nan=True)
 
 
 @pytest.mark.parametrize("kind", ["uint8", "uint8_stacked", "float"])
@@ -176,11 +246,13 @@ STEP_REDUCTION_SITES = [(128 * 64 * 64, 64), (128 * 32 * 32, 64),
 RAGGED_REDUCTIONS = [(100003, 64), (4099, 64), (4099, 100), (1001, 3),
                      (7, 512), (1, 3), (3, 100), (100003, 512)]
 RED_THREADS = 512
+ROW_PTRS = {"aligned": 1 << 20, "misaligned": (1 << 20) + 2}
 
 
-def _emulate_plan(plan, m, c):
-    """Which rows and channels the kernel's threads read, and which row
-    groups the folding block reads, as hit counts."""
+def _emulate_rows(plan, m, c):
+    """Which rows and channels the threads of a kernel over rows read and
+    write, as hit counts (csrc/fused.cu: a thread's chunk is blockIdx.x *
+    tx + threadIdx.x, its rows threadIdx.y, + ty, ... of its group)."""
     tx, ty = plan.block
     tiles, groups = plan.grid
     rows_hit = np.zeros(m, np.int64)
@@ -192,6 +264,15 @@ def _emulate_plan(plan, m, c):
     chunks = np.arange(tiles)[:, None] * tx + np.arange(tx)[None, :]
     ch = (chunks[..., None] * plan.vec + np.arange(plan.vec)).reshape(-1)
     ch_hit = np.bincount(ch[ch < c], minlength=c)
+    return rows_hit, ch_hit
+
+
+def _emulate_plan(plan, m, c):
+    """Which rows and channels the reduction's threads read, and which row
+    groups the folding block reads, as hit counts."""
+    tx, ty = plan.block
+    groups = plan.grid[1]
+    rows_hit, ch_hit = _emulate_rows(plan, m, c)
     # the last block of a tile: (slice, pair) threads over the groups
     pairs = 2 * tx * plan.vec
     slices = RED_THREADS // pairs
@@ -244,3 +325,103 @@ def test_reduction_plan_fills_the_card_at_large_sites_and_not_at_small(m, c):
             assert plan.tiles * plan.groups < 132
     with pytest.raises(ValueError):
         fused._reduction_plan(0, 64, torch.float32, (0,), sms=132)
+
+
+# ---------------------------------------------------------------------------
+# the launch plans of K2's forward and K1, checked against a numpy
+# emulation of the kernels' index mappings (csrc/fused.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("align", ["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("m,c", STEP_REDUCTION_SITES + RAGGED_REDUCTIONS
+                         + [(1001, 24)])
+def test_sbr_forward_plan_covers_every_element_once(m, c, dtype, align):
+    ptr = ROW_PTRS[align]
+    plan = fused._sbr_forward_plan(m, c, dtype, (1 << 20, ptr), sms=132)
+    vec16 = 16 // dtype.itemsize
+    # 16-byte accesses at every pr3 site; one element where C or a pointer
+    # forbids them
+    want_vec = vec16 if c % vec16 == 0 and align == "aligned" else 1
+    assert plan.vec == want_vec
+    if (m, c) in STEP_REDUCTION_SITES and align == "aligned":
+        assert plan.vec == vec16
+    tx, ty = plan.block
+    tiles, groups = plan.grid
+    # CUDA's limits and the kernel's: 512 threads, tx a power of two within
+    # a warp, grid.y <= 65535, 32-bit offsets within a group
+    assert tx * ty == RED_THREADS and tx & (tx - 1) == 0 and tx <= 32
+    assert 1 <= groups <= 65535 and plan.rows_per_group * c <= 2 ** 31 - 1
+    # every element once: each row once and each channel once (a thread's
+    # channels are those of its chunk, whatever row it is at)
+    rows_hit, ch_hit = _emulate_rows(plan, m, c)
+    assert (rows_hit == 1).all() and (ch_hit == 1).all()
+    # one wave of at most two blocks per SM (unless one group's tiles are
+    # more); at a large site it fills the card; each thread gets a whole
+    # loop trip of 4 rows, and no block is planned without rows
+    assert tiles * groups <= max(2 * 132, tiles)
+    if m * c >= 2 ** 22:
+        assert tiles * groups >= 128
+    assert plan.rows_per_group % (4 * ty) == 0
+    assert (groups - 1) * plan.rows_per_group < m
+
+
+NORMALIZE_CASES = [((128, 128, 128, 3), 3), ((8, 128, 128, 9), 3),
+                   ((3, 37, 41, 3), 3), ((2, 64, 64, 3), 3),
+                   ((2, 5, 7, 9), 9), ((4, 8, 8, 64), 64), ((1, 1, 1, 5), 5),
+                   ((1, 3, 5, 48), 48)]
+
+
+@pytest.mark.parametrize("align", ["aligned", "misaligned"])
+@pytest.mark.parametrize("shape,nstats", NORMALIZE_CASES)
+def test_normalize_plan_fixes_each_thread_phase_and_covers_every_element_once(
+        shape, nstats, align):
+    n = math.prod(shape)
+    plan = fused._normalize_plan(n, nstats, (ROW_PTRS[align], 1 << 21),
+                                 sms=132)
+    threads = plan.blocks * 256
+    vector = align == "aligned" and n >= 16
+    assert plan.vec == (16 if vector else 1)
+    assert plan.n_vec == (n // 16 if vector else 0)
+    assert 1 <= plan.blocks <= max(3 * 132, 8)
+    if plan.n_vec:
+        # the vector loop (csrc/fused.cu): chunk k is read by thread t = k %
+        # vec_stride on trip k // vec_stride; a warp's lanes read 32
+        # neighbouring chunks, and byte `off` of the warp's 512 is stored by
+        # lane (off % 32W) // W, store q = off // 32W, output r = off % W,
+        # with the constant it gathered on trip 0
+        s = plan.vec_stride
+        assert 32 <= s <= threads and s % 32 == 0
+        k = np.arange(plan.n_vec, dtype=np.int64)
+        t, trip = k % s, k // s
+        lane = t % 32
+        first = k - lane                         # the warp's first chunk
+        assert (first == trip * s + (t - lane)).all()
+        for w in (4, 8):                         # f32 and bf16 outputs
+            for b in range(16):
+                off = 16 * lane + b
+                storer = (off % (32 * w)) // w
+                q, r = off // (32 * w), off % w
+                const = (16 * (t - lane) + storer * w + q * 32 * w + r) % nstats
+                assert (const == (16 * k + b) % nstats).all()
+    # the one-element loop: elements 16 n_vec .. n, element e taken by the
+    # thread (e - begin) % scalar_stride-th from the grid's end, with the
+    # constant of its first; the tail's threads are idle in the vector loop
+    # where the grid has idle threads
+    begin = 16 * plan.n_vec
+    assert n - begin < 16 or not vector
+    assert nstats <= plan.scalar_stride <= threads
+    e = np.arange(begin, n, dtype=np.int64)
+    t = (e - begin) % plan.scalar_stride
+    assert ((begin + t) % nstats == e % nstats).all()
+    if vector and n > begin and threads - plan.vec_stride >= n - begin:
+        assert (threads - 1 - t >= plan.vec_stride).all()
+    # one wave, filled where the accesses allow: one access per thread
+    # where the wave holds them all, and no block without work
+    accesses = plan.n_vec if vector else n
+    if accesses >= 3 * 132 * 256:
+        assert plan.blocks == 3 * 132
+    elif accesses >= 8 * 256:
+        assert (plan.blocks - 1) * 256 < accesses <= plan.blocks * 256
