@@ -10,9 +10,11 @@ Phases, one or more lines each, and the last line is the result:
 2. build: the CUDA kernels of csrc/, built with nvcc from the checkout,
    with ptxas' registers and spills of each (no spills allowed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the same inputs, at the shapes of a pr3 step at batch 128, in f32 and
-   bf16: normalize_u8 and scale_bias_relu (the serving path), channel_stats
-   and scale_bias_relu_backward (the training path). One line per site:
+   the same inputs, at the shapes of a pr3 step at batch 128 and then at
+   those of a pr4 step at batch 256 (ResNet-50 at 224x224: 33 BN-ReLU
+   sites, 53 BatchNorms), in f32 and bf16: normalize_u8 and
+   scale_bias_relu (the serving path), channel_stats and
+   scale_bias_relu_backward (the training path). One line per site:
    agreement (normalize_u8 and scale_bias_relu exactly, NaN included), the
    bytes moved, time against the bound and its share, the vector width
    the plan chose, the kernel launches of one call (must be 1), the plain
@@ -34,9 +36,21 @@ Phases, one or more lines each, and the last line is the result:
    step on the card against the same step on the CPU, 16 f32 steps with
    one eval pass, launch counters per step, step time, images/s, the
    device's busy time by kernel group (no second reduction launch, the
-   old fold group) and idle share, then 8 bf16 steps;
-6. a JSON line of per-kernel numbers, the card's name and power limit,
-   and ``{"ok": true, "device": {...}}`` last.
+   old fold group), idle share and peak memory, then 8 bf16 steps;
+6. pr4 (ResNet-50 at 224x224, bf16, batch 256, AdamW with cosine warmup):
+   serving at batch 1, 8 and 256 as in 4 (f32 against the CPU at batch
+   8), then training on both routes as in 5: one f32 step against the
+   CPU at batch 8, 16 bf16 steps at batch 256 with one eval pass;
+7. pr2 (CNNSmall at 64x64, batch 64): 16 steps with one eval pass;
+8. resume: with deterministic cuDNN, pr3 trains 16 steps straight, then
+   8 steps to a checkpoint, and resume="auto" goes on to 16 from the saved
+   step, optimizer count and sampler state, ending with the straight
+   run's model, optimizer and sampler state bit for bit;
+9. evaluate: api.evaluate_on of that checkpoint, with percentiles and
+   success rates, on the card against the CPU;
+10. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
+   over every main path), the card's name and power limit, and
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It fails without CUDA. It imports nothing of JAX.
@@ -104,15 +118,38 @@ CMP_LOSS_RTOL, CMP_GRAD_REL, CMP_STATS_RTOL, CMP_STATS_ATOL = (
 # of 5 elements), and that image one byte past a 16-byte boundary
 K1_SHAPES = [(BATCH, 128, 128, 3), (8, 128, 128, 9), (3, 37, 41, 3),
              (MISALIGNED, 3, 37, 41, 3)]
+# pr4: a step of ResNet-50 at 224x224, batch 256 (data.batch_size). K1 on
+# its images; K2 (forward and backward) at the stem and each Bottleneck's
+# conv1 and conv2, 33 sites; K3 at those and every conv3 and downsample
+# BatchNorm, 53 sites
+PR4_BATCH = 256
+K1_PR4_SHAPES = [(PR4_BATCH, 224, 224, 3)]
+K2_PR4_SITES = [((PR4_BATCH, 64, 112, 112), 1), ((PR4_BATCH, 64, 56, 56), 6),
+                ((PR4_BATCH, 128, 56, 56), 1), ((PR4_BATCH, 128, 28, 28), 7),
+                ((PR4_BATCH, 256, 28, 28), 1), ((PR4_BATCH, 256, 14, 14), 11),
+                ((PR4_BATCH, 512, 14, 14), 1), ((PR4_BATCH, 512, 7, 7), 5)]
+K3_PR4_SITES = K2_PR4_SITES + [
+    ((PR4_BATCH, 256, 56, 56), 4), ((PR4_BATCH, 512, 28, 28), 5),
+    ((PR4_BATCH, 1024, 14, 14), 7), ((PR4_BATCH, 2048, 7, 7), 4)]
+PR4_CMP_BATCH = 8                # pr4's f32 step and serving against the CPU
+PR2_BATCH = 64
 TIMED_LAUNCHES = 100
 L2_BYTES = 50 * 2 ** 20
 # Whole-path tolerances. f32: the card and the CPU run the same f32 math
 # (TF32 off) in other orders, as tests/parity/test_e2e_model_parity.py
 # allows. bf16 against f32: bf16 keeps 8 significant bits and rounds at
-# every layer; 5e-2 of the pose's scale is about 3x the 1.4e-2 that the
-# port's bf16 and f32 paths differ by on the CPU for these weights.
+# every layer; 5e-2 of the pose's scale is about 4x the gap between the
+# port's bf16 and f32 paths on the CPU for the seed-0 weights: 9.8e-3 for
+# pr3 at 128 px and 1.13e-2 for pr4 at 224 px (ResNet-50, pose scale
+# 138), position, at batch 4.
 F32_RTOL, F32_ATOL = 1e-3, 1e-4
 BF16_REL = 5e-2
+# evaluate on the card against the CPU: f32 (TF32 off) means of errors,
+# rtol 1e-3 as the poses; the reports' rounded quantiles (3 decimals)
+# within one unit of the last place beyond that; a success rate within one
+# sample (a sample at a threshold may fall on either side)
+EVAL_RTOL, EVAL_ROUNDED = 1e-3, 1e-3
+EVAL_SAMPLES = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -292,15 +329,15 @@ def nonfinite_(rows, channels):
         rows[i + 1::211, (i + 1) % channels] = value
 
 
-def phase_normalize_u8(fused, dev):
-    """K1 at K1_SHAPES in f32 and bf16, one line each: exact agreement with
-    the plain version, time against the bound, vector width, launches per
-    call, plain and library times; returns the f32 summary at pr3's
-    shape."""
+def phase_normalize_u8(fused, dev, shapes=K1_SHAPES):
+    """K1 at ``shapes`` in f32 and bf16, one line each: exact agreement
+    with the plain version, time against the bound, vector width, launches
+    per call, plain and library times; returns the f32 summary at the
+    first shape (the main path's)."""
     g = torch.Generator(device=dev).manual_seed(0)
     summary = None
     fn = fused.normalize_u8
-    for shape in K1_SHAPES:
+    for shape in shapes:
         real = shape[1:] if shape[0] == MISALIGNED else shape
         n, c = math.prod(real), real[-1]
         reps = c // len(MEAN)
@@ -346,23 +383,25 @@ def phase_normalize_u8(fused, dev):
                                  f"{per_call} launches in one call")
             check(vec == (1 if shape[0] == MISALIGNED else 16),
                   f"normalize_u8 {shape} {dtype}: vector width {vec}")
-            if shape == K1_SHAPES[0] and dtype == torch.float32:
+            if shape == shapes[0] and dtype == torch.float32:
                 summary = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             del imgs, arg_sets, args0, out, ref
     return summary
 
 
-def phase_sbr_forward(fused, dev):
-    """K2's forward at the nine scale_bias_relu sites and K2_EXTRA, in f32
-    and bf16, one line each as phase_normalize_u8, then a NaN/inf case;
-    returns the f32 summary over the sites."""
+def phase_sbr_forward(fused, dev, sites_list=K2_SITES, extra=K2_EXTRA,
+                      label="nine", nonfinite=True):
+    """K2's forward at the scale_bias_relu sites of ``sites_list`` (pr3's
+    nine by default) and ``extra``, in f32 and bf16, one line each as
+    phase_normalize_u8, then (``nonfinite``) a NaN/inf case; returns the
+    f32 summary over the sites."""
     g = torch.Generator(device=dev).manual_seed(1)
     summary = None
     fn = fused.scale_bias_relu
     for dtype in (torch.float32, torch.bfloat16):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for shape, sites in K2_SITES + K2_EXTRA:
+        for shape, sites in sites_list + extra:
             xs = [rows_input(shape, dtype, g, dev)]
             n, c = xs[0].numel(), xs[0].shape[1]
             xs += [rows_input(shape, dtype, g, dev) for _ in
@@ -401,7 +440,7 @@ def phase_sbr_forward(fused, dev):
                 totals["ops"] += sites * 3 * n
             del xs, arg_sets, args0, out, ref
         b_ms, b_by = bound(totals["nbytes"], totals["ops"])
-        print(f"kernel scale_bias_relu all nine sites {str(dtype)[6:]}: "
+        print(f"kernel scale_bias_relu all {label} sites {str(dtype)[6:]}: "
               f"kernel {totals['ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
               f"{totals['nbytes']} bytes) share {b_ms / totals['ms']:.3f}; "
               f"plain {totals['plain_ms']:.4f} ms", flush=True)
@@ -409,6 +448,8 @@ def phase_sbr_forward(fused, dev):
             summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
                            plain_ms=totals["plain_ms"], bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
+        if not nonfinite:
+            continue
         x = rows_input(NONFINITE_SHAPE, dtype, g, dev)
         nonfinite_(fused.channel_rows(x), 4)
         c = x.shape[1]
@@ -435,12 +476,14 @@ def _sites_label(sites):
     return f"x{sites} site(s)" if isinstance(sites, int) else sites
 
 
-def phase_channel_stats(fused, dev):
-    """K3 channel_stats at the twenty BN sites of a pr3 step, a ragged M,
-    C = 3, C = 100 and a misaligned view, in f32 and bf16: agreement with
-    the plain version, time against the bound, the vector width the plan
-    chose, launches per call (1), and REPEATS launches at the stem shape
-    bit for bit; returns the f32 summary over the sites."""
+def phase_channel_stats(fused, dev, sites_list=K3_SITES, extra=K3_EXTRA,
+                        label="twenty"):
+    """K3 channel_stats at the BN sites of ``sites_list`` (the twenty of a
+    pr3 step by default) and ``extra`` (a ragged M, C = 3, C = 100 and a
+    misaligned view), in f32 and bf16: agreement with the plain version,
+    time against the bound, the vector width the plan chose, launches per
+    call (1), and REPEATS launches at pr3's stem shape bit for bit;
+    returns the f32 summary over the sites."""
     g = torch.Generator(device=dev).manual_seed(2)
     summary = None
     fn = fused.channel_stats
@@ -451,7 +494,7 @@ def phase_channel_stats(fused, dev):
     for dtype in (torch.float32, torch.bfloat16):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                       nbytes=0, ops=0)
-        for shape, sites in K3_SITES + K3_EXTRA:
+        for shape, sites in sites_list + extra:
             xs = [rows_input(shape, dtype, g, dev, shift=0.5)]
             n, c = xs[0].numel(), xs[0].shape[1]
             xs += [rows_input(shape, dtype, g, dev, shift=0.5)
@@ -518,7 +561,7 @@ def phase_channel_stats(fused, dev):
                                    "bitwise repeatable")
             del xs, arg_sets, xf
         b_ms, b_by = bound(totals["nbytes"], totals["ops"])
-        print(f"kernel channel_stats all twenty sites {str(dtype)[6:]}: "
+        print(f"kernel channel_stats all {label} sites {str(dtype)[6:]}: "
               f"kernel {totals['ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
               f"{totals['nbytes']} bytes) share {b_ms / totals['ms']:.3f}; "
               f"plain {totals['plain_ms']:.4f} ms library "
@@ -530,16 +573,18 @@ def phase_channel_stats(fused, dev):
     return summary
 
 
-def phase_sbr_backward(fused, dev):
-    """K2's backward at the nine scale_bias_relu sites and K2_EXTRA, in f32
-    and bf16, as phase_channel_stats, then a NaN/inf case; returns the f32
-    summary over the sites."""
+def phase_sbr_backward(fused, dev, sites_list=K2_SITES, extra=K2_EXTRA,
+                       label="nine", nonfinite=True):
+    """K2's backward at the scale_bias_relu sites of ``sites_list`` (pr3's
+    nine by default) and ``extra``, in f32 and bf16, as
+    phase_channel_stats, then (``nonfinite``) a NaN/inf case; returns the
+    f32 summary over the sites."""
     gen = torch.Generator(device=dev).manual_seed(3)
     summary = None
     fn = fused.scale_bias_relu_backward
     for dtype in (torch.float32, torch.bfloat16):
         totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for shape, sites in K2_SITES + K2_EXTRA:
+        for shape, sites in sites_list + extra:
             xs = [rows_input(shape, dtype, gen, dev)]
             n, c = xs[0].numel(), xs[0].shape[1]
             copies = copies_beyond_l2(3 * n * dtype.itemsize)
@@ -616,7 +661,7 @@ def phase_sbr_backward(fused, dev):
                                    f"{dtype}: not bitwise repeatable")
             del xs, gs, arg_sets, args0
         b_ms, b_by = bound(totals["nbytes"], totals["ops"])
-        print(f"kernel scale_bias_relu_backward all nine sites "
+        print(f"kernel scale_bias_relu_backward all {label} sites "
               f"{str(dtype)[6:]}: kernel {totals['ms']:.4f} ms bound "
               f"{b_ms:.4f} ms ({b_by}, {totals['nbytes']} bytes) share "
               f"{b_ms / totals['ms']:.3f}; plain {totals['plain_ms']:.4f} ms",
@@ -625,6 +670,8 @@ def phase_sbr_backward(fused, dev):
             summary = dict(max_abs_err=totals["max_abs_err"], ms=totals["ms"],
                            plain_ms=totals["plain_ms"], bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
+        if not nonfinite:
+            continue
         x = rows_input(NONFINITE_SHAPE, dtype, gen, dev)
         gg = rows_input(NONFINITE_SHAPE, dtype, gen, dev)
         nonfinite_(fused.channel_rows(x), 4)
@@ -653,26 +700,39 @@ def phase_sbr_backward(fused, dev):
     return summary
 
 
-def requests(model_cfg, seed):
-    """Observations of batch 1 (unbatched), 8 and 128."""
+def requests(model_cfg, seed, batches):
+    """Observations of each batch size of ``batches``, 1 unbatched."""
     rs = np.random.RandomState(seed)
     hw = model_cfg.image_size
 
     def obs(n):
-        shape = () if n is None else (n,)
+        shape = () if n == 1 else (n,)
         return {"images": {c: rs.randint(0, 256, shape + (hw, hw, 3),
                                          np.uint8)
                            for c in model_cfg.cameras},
                 "proprio": rs.randn(*shape, model_cfg.proprio_dim)
                 .astype(np.float32)}
 
-    return {1: obs(None), 8: obs(8), BATCH: obs(BATCH)}
+    return {n: obs(n) for n in batches}
+
+
+def bn_sites(model):
+    """(BN-ReLU sites, which run scale_bias_relu, and all BatchNorms, which
+    run channel_stats on the pallas route) of a model's forward."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
+        BatchNormAct,
+    )
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNormAct)]
+    return sum(m.act for m in bns), len(bns)
 
 
 def drive(pred, reqs, fused, label):
     """Answer every request once with the counters set to 0 just before;
-    check one normalize_u8 and nine scale_bias_relu launches per forward
-    chunk. Returns ({batch: (pos, quat)}, {kernel: launches})."""
+    check one normalize_u8 launch and one scale_bias_relu launch per
+    BN-ReLU site per forward chunk. Returns ({batch: (pos, quat)},
+    {kernel: launches})."""
+    sites, _ = bn_sites(pred.model)
     _zero_counts(fused)
     answers = {}
     chunks = 0
@@ -685,13 +745,13 @@ def drive(pred, reqs, fused, label):
         d2 = fused.scale_bias_relu.launches - k2
         print(f"serving {label} batch {n}: {chunk} forward(s), launches "
               f"normalize_u8 {d1}, scale_bias_relu {d2}", flush=True)
-        check(d1 == chunk and d2 == 9 * chunk,
-              f"{label} batch {n}: expected {chunk} and {9 * chunk} kernel "
-              f"launches, saw {d1} and {d2}")
+        check(d1 == chunk and d2 == sites * chunk,
+              f"{label} batch {n}: expected {chunk} and {sites * chunk} "
+              f"kernel launches, saw {d1} and {d2}")
     counts = {"normalize_u8": fused.normalize_u8.launches,
               "scale_bias_relu": fused.scale_bias_relu.launches}
     check(counts["normalize_u8"] == chunks
-          and counts["scale_bias_relu"] == 9 * chunks,
+          and counts["scale_bias_relu"] == sites * chunks,
           f"{label}: launch counts {counts} for {chunks} forwards")
     return answers, counts
 
@@ -719,6 +779,7 @@ def latency_ms(pred, obs, iters=30):
 
 
 FOLD_GROUP = "reduction fold (stage 2)"
+OTHER_GROUP = "other elementwise/reduction"
 
 
 def _kernel_group(name: str) -> str:
@@ -744,13 +805,14 @@ def _kernel_group(name: str) -> str:
         return "convolution (cuDNN)"
     if "gemm" in low or "gemv" in low:
         return "matmul"
-    return "other elementwise/reduction"
+    return OTHER_GROUP
 
 
 def device_breakdown(run, iters):
     """Device time per call of ``run`` (after one warm call), by kernel
-    group and in all, from torch.profiler over ``iters`` calls; None if the
-    profiler saw no device time."""
+    group and in all, from torch.profiler over ``iters`` calls, and the
+    five kernels that take most of OTHER_GROUP's; None if the profiler saw
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -761,7 +823,7 @@ def device_breakdown(run, iters):
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
-    groups = {}
+    groups, other = {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -770,23 +832,32 @@ def device_breakdown(run, iters):
             us = getattr(e, "self_cuda_time_total", 0.0)
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us
+        if g == OTHER_GROUP:
+            other[e.key[:100]] = other.get(e.key[:100], 0.0) + us
     busy = sum(groups.values())
     if busy <= 0:
         return None
     per_call = {g: round(us / iters / 1e3, 4) for g, us in
                 sorted(groups.items(), key=lambda kv: -kv[1])}
-    return per_call, busy / iters / 1e3
+    top = {k: round(us / iters / 1e3, 4) for k, us in
+           sorted(other.items(), key=lambda kv: -kv[1])[:5]}
+    return per_call, busy / iters / 1e3, top
 
 
-def phase_serving(rppt, fused, smi):
+def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
+                  cpu_batches=(1, 8, BATCH)):
+    """The ``name`` preset's Predictor at full width with seed-0 weights,
+    in f32 and bf16, answering requests of ``batches``: launch counts,
+    agreement with the CPU in f32 at ``cpu_batches``, latency and device
+    time by kernel group. Returns the f32 run's launch counts."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
         random_jax_variables,
         state_dict_from_jax,
     )
 
-    cfg = rppt.preset("pr3")
+    cfg = rppt.preset(name)
     m = cfg.model
-    print(f"serving pr3: {m.backbone} {m.image_size}x{m.image_size} "
+    print(f"serving {name}: {m.backbone} {m.image_size}x{m.image_size} "
           f"cameras {list(m.cameras)}, proprio {m.proprio_dim} -> "
           f"{list(m.proprio_hidden)} -> {m.proprio_features}, head "
           f"{m.image_features + m.proprio_features} -> {list(m.head_hidden)} "
@@ -796,23 +867,30 @@ def phase_serving(rppt, fused, smi):
     print(f"serving weights from seed 0 via state_dict_from_jax: "
           f"{sum(v.numel() for v in state_dict.values())} values, "
           f"{time.perf_counter() - t:.2f} s", flush=True)
-    reqs = requests(m, seed=1)
+    reqs = requests(m, seed=1, batches=batches)
 
-    cpu = rppt.Predictor(cfg, state_dict=state_dict, max_batch=BATCH,
+    cpu = rppt.Predictor(cfg.override(**{"model.dtype": "float32"}),
+                         state_dict=state_dict, max_batch=max(cpu_batches),
                          device="cpu")
-    want = {n: cpu(obs) for n, obs in reqs.items()}
+    t = time.perf_counter()
+    want = {n: cpu(reqs[n]) for n in cpu_batches}
+    print(f"serving {name} f32 on the CPU at batch {list(cpu_batches)}: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    del cpu
 
     launches = {}
     for dtype in ("float32", "bfloat16"):
         c = cfg.override(**{"model.dtype": dtype})
-        pred = rppt.Predictor(c, state_dict=state_dict, max_batch=BATCH)
+        pred = rppt.Predictor(c, state_dict=state_dict,
+                              max_batch=max(batches))
         pred.warmup()
-        answers, counts = drive(pred, reqs, fused, dtype)
+        label = f"{name} {dtype}"
+        answers, counts = drive(pred, reqs, fused, label)
         if dtype == "float32":
             launches = counts
-        check_shapes(answers, dtype)
-        for n, (pos, quat) in answers.items():
-            wpos, wquat = want[n]
+        check_shapes(answers, label)
+        for n in cpu_batches:
+            (pos, quat), (wpos, wquat) = answers[n], want[n]
             err_p = float(np.abs(pos - wpos).max())
             err_q = float(np.abs(quat - wquat).max())
             if dtype == "float32":
@@ -824,24 +902,24 @@ def phase_serving(rppt, fused, smi):
                 tol_p = BF16_REL * max(1.0, float(np.abs(wpos).max()))
                 ok = err_p <= tol_p and err_q <= BF16_REL
                 rule = f"pos {tol_p:.3g}, quat {BF16_REL}"
-            print(f"serving {dtype} batch {n} card vs CPU f32: max_abs_err "
+            print(f"serving {label} batch {n} card vs CPU f32: max_abs_err "
                   f"pos {err_p:.3g} quat {err_q:.3g} ({rule})", flush=True)
-            check(ok, f"{dtype} batch {n}: card and CPU disagree")
+            check(ok, f"{label} batch {n}: card and CPU disagree")
         for n, obs in reqs.items():
             p50, p90 = latency_ms(pred, obs)
-            print(f"serving {dtype} batch {n}: latency p50 {p50:.3f} ms "
+            print(f"serving {label} batch {n}: latency p50 {p50:.3f} ms "
                   f"p90 {p90:.3f} ms ({smi})", flush=True)
             prof = device_breakdown(lambda: pred(obs), iters=5)
             if prof is None:
-                print(f"profile {dtype} batch {n}: the profiler saw no "
+                print(f"profile {label} batch {n}: the profiler saw no "
                       "device time (not measured)", flush=True)
             else:
                 # idle share of the p50 request time, taken unprofiled
-                groups, busy_ms = prof
-                print(f"profile {dtype} batch {n}: device busy {busy_ms:.4f} "
-                      f"ms per request, idle share {1 - busy_ms / p50:.3f}; "
-                      f"ms per request by kernel group {json.dumps(groups)}",
-                      flush=True)
+                groups, busy_ms, _ = prof
+                print(f"profile {label} batch {n}: device busy "
+                      f"{busy_ms:.4f} ms per request, idle share "
+                      f"{1 - busy_ms / p50:.3f}; ms per request by kernel "
+                      f"group {json.dumps(groups)}", flush=True)
         del pred
     return launches
 
@@ -1024,13 +1102,13 @@ class ReluTape:
         return self._patch(fused, rep_relu, rep_sbr, rep_sbr_backward)
 
 
-def compare_step_with_cpu(rppt, fused, route, dataset, dev):
-    """One train step from the same seeded weights on the same batch of
-    CMP_BATCH, on the card and on the CPU: loss, every parameter gradient,
-    and the BatchNorm running statistics after the step. The CPU step
-    takes the card's ReLU decisions (ReluTape); how many of them differ
-    from the CPU's own, and the worst gradient without the tape, are
-    printed too."""
+def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
+    """One f32 train step of ``cfg`` from the same seeded weights on the
+    same batch of ``n``, on the card and on the CPU: loss, every parameter
+    gradient, and the BatchNorm running statistics after the step. The CPU
+    step takes the card's ReLU decisions (ReluTape); how many of them
+    differ from the CPU's own, and the worst gradient without the tape,
+    are printed too."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
         create_state,
     )
@@ -1042,10 +1120,11 @@ def compare_step_with_cpu(rppt, fused, route, dataset, dev):
         state_dict_from_jax,
     )
 
-    cfg = rppt.preset("pr3").override(**{"model.bn_stats": route})
+    cfg = cfg.override(**{"model.dtype": "float32"})
+    route = cfg.model.bn_stats
     sd = state_dict_from_jax(random_jax_variables(cfg.model, seed=0),
                              cfg.model)
-    batch = dataset.get_batch(np.arange(CMP_BATCH), augment=True, seed=5)
+    batch = dataset.get_batch(np.arange(n), augment=True, seed=5)
 
     def step(d, tape_mode=None):
         state = create_state(cfg, torch.device(d), sd)
@@ -1080,7 +1159,7 @@ def compare_step_with_cpu(rppt, fused, route, dataset, dev):
                      / (CMP_STATS_ATOL + CMP_STATS_RTOL * bc[k].abs())
                      ).max().item() for k in bc}
     worst_s = max(stats_err, key=stats_err.get)
-    print(f"train {route} one step card vs CPU (batch {CMP_BATCH}, f32, TF32 "
+    print(f"train {label} one step card vs CPU (batch {n}, f32, TF32 "
           f"off): loss {lg:.6f} vs {lc:.6f} rel {loss_rel:.3g} (rtol "
           f"{CMP_LOSS_RTOL}); ReLU inputs of another sign on the CPU "
           f"{tape.flips} of {tape.n}; with the card's ReLU decisions worst "
@@ -1090,19 +1169,34 @@ def compare_step_with_cpu(rppt, fused, route, dataset, dev):
           f"{stats_err[worst_s]:.3g} of the tolerance (rtol "
           f"{CMP_STATS_RTOL} atol {CMP_STATS_ATOL})", flush=True)
     check(tape.n > 0 and (route != "reduce" or bool(tape.by_ptr)),
-          f"{route}: the ReLU tape missed the model's ReLUs")
-    check(loss_rel <= CMP_LOSS_RTOL, f"{route}: loss differs from the CPU's")
+          f"{label}: the ReLU tape missed the model's ReLUs")
+    check(loss_rel <= CMP_LOSS_RTOL, f"{label}: loss differs from the CPU's")
     check(grad_rel[worst_g] <= CMP_GRAD_REL,
-          f"{route}: gradient of {worst_g} differs from the CPU's")
+          f"{label}: gradient of {worst_g} differs from the CPU's")
     check(stats_err[worst_s] <= 1.0,
-          f"{route}: running statistics {worst_s} differ from the CPU's")
+          f"{label}: running statistics {worst_s} differ from the CPU's")
 
 
-def run_training(rppt, fused, route, dataset, dev, smi, ckpt_root):
-    """16 f32 steps of pr3 (2 calls of steps_per_call=8) with one eval pass
-    of EVAL_BATCHES, through engine/loop.train_on; checks the kernel
-    launches of every step and eval forward. Returns the launch counts of
-    the run."""
+def train_cfg(cfg, ckpt_dir, steps=TRAIN_STEPS, eval_every=TRAIN_STEPS,
+              **overrides):
+    """``cfg`` cut to ``steps`` steps in calls of STEPS_PER_CALL, logging
+    at each call, with one eval pass of EVAL_BATCHES at ``eval_every``."""
+    return cfg.override(**{
+        "train.steps": steps, "train.steps_per_call": STEPS_PER_CALL,
+        "train.log_every": STEPS_PER_CALL, "train.eval_every": eval_every,
+        "train.eval_steps": EVAL_BATCHES, "train.ckpt_every": 0,
+        "train.ckpt_dir": ckpt_dir, **overrides})
+
+
+def run_training(fused, cfg, label, dataset, dev, smi, state=None,
+                 expect_steps=None):
+    """``cfg``'s training through engine/loop.train_on (from seeded
+    weights, or ``state``), with the launch counters set to 0 just before
+    and read just after: ``expect_steps`` steps (default train.steps);
+    checks the kernel launches of every step and eval forward against the
+    model's BN sites, prints step time, images/s, peak memory and the
+    device time by kernel group. Returns (launch counts of the run,
+    train_on's result, the steps' times)."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
         HostPipeline,
     )
@@ -1111,33 +1205,32 @@ def run_training(rppt, fused, route, dataset, dev, smi, ckpt_root):
         create_state,
     )
 
-    cfg = rppt.preset("pr3").override(**{
-        "model.bn_stats": route, "train.steps": TRAIN_STEPS,
-        "train.steps_per_call": STEPS_PER_CALL,
-        "train.log_every": STEPS_PER_CALL, "train.eval_every": TRAIN_STEPS,
-        "train.eval_steps": EVAL_BATCHES, "train.ckpt_every": 0,
-        "train.ckpt_dir": f"{ckpt_root}/{route}_f32"})
-    state = create_state(cfg, dev)
+    tcfg = cfg.train
+    batch = cfg.data.batch_size
+    if state is None:
+        state = create_state(cfg, dev)
+    act_sites, bn_count = bn_sites(state.model)
     steps, evals = [], []
     train_step, eval_step = loop.train_step, loop.eval_step
 
-    def timed_step(st, batch, tcfg):
+    def timed_step(st, b, tc):
         before = _counts(fused)
         copies = fused.scale_bias_relu.grad_layout_copies
         t = time.perf_counter()
-        m = train_step(st, batch, tcfg)
+        m = train_step(st, b, tc)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t, _delta(_counts(fused), before),
                       fused.scale_bias_relu.grad_layout_copies - copies))
         return m
 
-    def counted_eval(model, batch, tcfg):
+    def counted_eval(model, b, tc):
         before = _counts(fused)
-        m = eval_step(model, batch, tcfg)
+        m = eval_step(model, b, tc)
         evals.append(_delta(_counts(fused), before))
         return m
 
     loop.train_step, loop.eval_step = timed_step, counted_eval
+    torch.cuda.reset_peak_memory_stats(dev)
     try:
         _zero_counts(fused)
         out = loop.train_on(cfg, state, dataset, dataset)
@@ -1145,96 +1238,288 @@ def run_training(rppt, fused, route, dataset, dev, smi, ckpt_root):
         copies = fused.scale_bias_relu.grad_layout_copies
     finally:
         loop.train_step, loop.eval_step = train_step, eval_step
+    peak = torch.cuda.max_memory_allocated(dev)
 
-    want_step = {"normalize_u8": 1, "scale_bias_relu": 9,
-                 "scale_bias_relu_backward": 9, "channel_stats": 0}
-    if route == "pallas":
+    want_step = {"normalize_u8": 1, "scale_bias_relu": act_sites,
+                 "scale_bias_relu_backward": act_sites, "channel_stats": 0}
+    if cfg.model.bn_stats == "pallas":
         want_step.update(scale_bias_relu=0, scale_bias_relu_backward=0,
-                         channel_stats=20)
-    want_eval = {"normalize_u8": 1, "scale_bias_relu": 9,
+                         channel_stats=bn_count)
+    want_eval = {"normalize_u8": 1, "scale_bias_relu": act_sites,
                  "scale_bias_relu_backward": 0, "channel_stats": 0}
-    check(len(steps) == TRAIN_STEPS and len(evals) == EVAL_BATCHES,
-          f"{route}: {len(steps)} steps and {len(evals)} eval forwards")
+    n_steps = tcfg.steps if expect_steps is None else expect_steps
+    n_evals = EVAL_BATCHES if tcfg.eval_every else 0
+    check(len(steps) == n_steps and len(evals) == n_evals,
+          f"{label}: {len(steps)} steps and {len(evals)} eval forwards, "
+          f"expected {n_steps} and {n_evals}")
     for i, (_, seen, _) in enumerate(steps):
-        check(seen == want_step, f"{route} step {i + 1}: launches {seen}, "
+        check(seen == want_step, f"{label} step {i + 1}: launches {seen}, "
                                  f"expected {want_step}")
     for i, seen in enumerate(evals):
-        check(seen == want_eval, f"{route} eval forward {i + 1}: launches "
+        check(seen == want_eval, f"{label} eval forward {i + 1}: launches "
                                  f"{seen}, expected {want_eval}")
     met = out["metrics"]
-    check(all(math.isfinite(met[k]) for k in ("loss", "eval_loss",
-                                              "eval_pos_mae_cm")),
-          f"{route}: non-finite metrics {met}")
-    print(f"train {route} f32: {TRAIN_STEPS} steps in calls of "
-          f"{STEPS_PER_CALL}, launches per step {want_step} (all "
-          f"{TRAIN_STEPS} steps), per eval forward {want_eval} (all "
-          f"{EVAL_BATCHES}); run total {launches}; loss {met['loss']:.5f} "
-          f"eval_loss {met['eval_loss']:.5f} eval_pos_mae_cm "
-          f"{met['eval_pos_mae_cm']:.3f}", flush=True)
-    print(f"train {route} f32: gradient layout copies per step "
+    keys = ("loss", "eval_loss", "eval_pos_mae_cm") if evals else ("loss",)
+    check(all(math.isfinite(met[k]) for k in keys),
+          f"{label}: non-finite metrics {met}")
+    evals_text = (f"eval_loss {met['eval_loss']:.5f} eval_pos_mae_cm "
+                  f"{met['eval_pos_mae_cm']:.3f}" if evals else "no eval")
+    print(f"train {label}: {len(steps)} steps in calls of "
+          f"{tcfg.steps_per_call}, launches per step {want_step} (all "
+          f"{len(steps)} steps), per eval forward {want_eval} (all "
+          f"{n_evals}); run total {launches}; loss {met['loss']:.5f} "
+          f"{evals_text}; peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated) ({smi})", flush=True)
+    print(f"train {label}: gradient layout copies per step "
           f"{[c for _, _, c in steps]} (total {copies})", flush=True)
+    times = [t * 1e3 for t, _, _ in steps]
+    if len(steps) <= STEPS_PER_CALL:
+        return launches, out, times
 
     # steady state: the steps after the first call (kernel builds, cuDNN
     # plans and the first batches land in the first)
-    times = [t * 1e3 for t, _, _ in steps[STEPS_PER_CALL:]]
-    p50, p90 = (float(v) for v in np.percentile(times, [50, 90]))
-    print(f"train {route} f32 batch {BATCH}: synchronized step p50 "
-          f"{p50:.3f} ms p90 {p90:.3f} ms, {BATCH / p50 * 1e3:.1f} images/s "
-          f"at p50 ({smi})", flush=True)
+    p50, p90 = (float(v) for v in
+                np.percentile(times[STEPS_PER_CALL:], [50, 90]))
+    print(f"train {label} batch {batch}: synchronized step p50 {p50:.3f} ms "
+          f"p90 {p90:.3f} ms, {batch / p50 * 1e3:.1f} images/s at p50 "
+          f"({smi})", flush=True)
     pipe = HostPipeline(dataset, cfg.data, device=dev, train=True)
     try:
         prof = device_breakdown(
-            lambda: loop.train_step(state, next(pipe), cfg.train), iters=4)
+            lambda: loop.train_step(state, next(pipe), tcfg), iters=4)
     finally:
         pipe.close()
     if prof is None:
-        print(f"profile train {route} f32: the profiler saw no device time "
-              "(not measured)", flush=True)
+        print(f"profile train {label}: the profiler saw no device time (not "
+              "measured)", flush=True)
     else:
-        groups, busy_ms = prof
-        print(f"profile train {route} f32: device busy {busy_ms:.4f} ms per "
+        groups, busy_ms, top = prof
+        print(f"profile train {label}: device busy {busy_ms:.4f} ms per "
               f"step, idle share {1 - busy_ms / p50:.3f} of the p50 step; ms "
               f"per step by kernel group {json.dumps(groups)}; group "
-              f"{FOLD_GROUP!r} {groups.get(FOLD_GROUP, 0.0)} ms", flush=True)
+              f"{FOLD_GROUP!r} {groups.get(FOLD_GROUP, 0.0)} ms; the "
+              f"{OTHER_GROUP!r} kernels that take most, ms per step "
+              f"{json.dumps(top)}", flush=True)
         check(FOLD_GROUP not in groups,
-              f"{route}: a second reduction launch ran in the step")
-    del state, out
-    return launches
+              f"{label}: a second reduction launch ran in the step")
+    return launches, out, times
 
 
-def run_training_bf16(rppt, route, dataset, dev, ckpt_root):
-    """8 bf16 steps of pr3; checks the loss is finite."""
-    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
-    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
-        create_state,
-    )
-
-    cfg = rppt.preset("pr3").override(**{
-        "model.bn_stats": route, "model.dtype": "bfloat16",
-        "train.steps": STEPS_PER_CALL, "train.steps_per_call": STEPS_PER_CALL,
-        "train.log_every": STEPS_PER_CALL, "train.eval_every": 0,
-        "train.ckpt_every": 0, "train.ckpt_dir": f"{ckpt_root}/{route}_bf16"})
-    out = loop.train_on(cfg, create_state(cfg, dev), dataset, dataset)
-    loss = out["metrics"]["loss"]
-    print(f"train {route} bf16: {STEPS_PER_CALL} steps, loss {loss:.5f}",
-          flush=True)
-    check(math.isfinite(loss), f"{route} bf16: non-finite loss {loss}")
-
-
-def phase_training(rppt, fused, dev, smi):
-    m = rppt.preset("pr3").model
-    dataset = MemoryDemos(rppt.preset("pr3"), DATASET_BATCHES * BATCH,
-                          seed=4)
+def phase_training(rppt, fused, dev, smi, ckpt_root):
+    """pr3 at full width on both BN routes: one step against the CPU, 16
+    f32 steps with an eval pass, 8 bf16 steps. Returns ({path: launch
+    counts}, the in-memory dataset)."""
+    cfg = rppt.preset("pr3")
+    m = cfg.model
+    dataset = MemoryDemos(cfg, DATASET_BATCHES * BATCH, seed=4)
     print(f"training pr3: {m.backbone} {m.image_size}x{m.image_size}, "
           f"batch {BATCH}, in-memory dataset of {len(dataset)} samples from "
           f"seed 4, host augmentation on", flush=True)
     launches = {}
-    with tempfile.TemporaryDirectory() as ckpt_root:
-        for route in ("reduce", "pallas"):
-            compare_step_with_cpu(rppt, fused, route, dataset, dev)
-            launches[route] = run_training(rppt, fused, route, dataset, dev,
-                                           smi, ckpt_root)
-            run_training_bf16(rppt, route, dataset, dev, ckpt_root)
+    for route in ("reduce", "pallas"):
+        c = cfg.override(**{"model.bn_stats": route})
+        compare_step_with_cpu(fused, c, f"pr3 {route}", dataset, dev)
+        counts, out, _ = run_training(
+            fused, train_cfg(c, f"{ckpt_root}/pr3_{route}_f32"),
+            f"pr3 {route} f32", dataset, dev, smi)
+        launches[f"train pr3 {route} f32"] = counts
+        del out
+        counts, out, _ = run_training(
+            fused, train_cfg(c.override(**{"model.dtype": "bfloat16"}),
+                             f"{ckpt_root}/pr3_{route}_bf16",
+                             steps=STEPS_PER_CALL, eval_every=0),
+            f"pr3 {route} bf16", dataset, dev, smi)
+        launches[f"train pr3 {route} bf16"] = counts
+        del out
+    return launches, dataset
+
+
+def phase_training_pr4(rppt, fused, dev, smi, ckpt_root):
+    """pr4 (ResNet-50 at 224x224) as the preset trains it: bf16, batch 256,
+    AdamW with cosine warmup, on both BN routes: one f32 step against the
+    CPU at batch PR4_CMP_BATCH, then 16 steps with an eval pass."""
+    cfg = rppt.preset("pr4")
+    m, t = cfg.model, cfg.train
+    dataset = MemoryDemos(cfg, DATASET_BATCHES * PR4_BATCH, seed=6)
+    print(f"training pr4: {m.backbone} {m.image_size}x{m.image_size} "
+          f"{m.dtype}, batch {cfg.data.batch_size}, {t.optimizer} lr {t.lr} "
+          f"wd {t.weight_decay} {t.lr_schedule} schedule with "
+          f"{t.warmup_steps} warmup steps, remat {m.remat}, in-memory "
+          f"dataset of {len(dataset)} samples from seed 6, host "
+          f"augmentation on ({cfg.data.num_workers} workers)", flush=True)
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
+        PoseEstimator,
+    )
+
+    with torch.device("meta"):
+        sites = bn_sites(PoseEstimator(m))
+    check(sites == (sum(n for _, n in K2_PR4_SITES),
+                    sum(n for _, n in K3_PR4_SITES)),
+          f"pr4 has {sites} BN-ReLU sites and BatchNorms; the kernel "
+          "phases' site lists differ")
+    launches = {}
+    for route in ("reduce", "pallas"):
+        c = cfg.override(**{"model.bn_stats": route})
+        compare_step_with_cpu(fused, c, f"pr4 {route}", dataset, dev,
+                              n=PR4_CMP_BATCH)
+        counts, out, _ = run_training(
+            fused, train_cfg(c, f"{ckpt_root}/pr4_{route}"),
+            f"pr4 {route} {m.dtype}", dataset, dev, smi)
+        launches[f"train pr4 {route}"] = counts
+        del out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_training_pr2(rppt, fused, dev, smi, ckpt_root):
+    """pr2 (CNNSmall at 64x64, batch 64): 16 steps with an eval pass."""
+    cfg = rppt.preset("pr2")
+    m = cfg.model
+    dataset = MemoryDemos(cfg, DATASET_BATCHES * PR2_BATCH, seed=7)
+    print(f"training pr2: {m.backbone} {m.image_size}x{m.image_size}, "
+          f"batch {cfg.data.batch_size}, in-memory dataset of "
+          f"{len(dataset)} samples from seed 7", flush=True)
+    counts, out, _ = run_training(fused, train_cfg(cfg, f"{ckpt_root}/pr2"),
+                                  "pr2 reduce f32", dataset, dev, smi)
+    return {"train pr2": counts}
+
+
+def _checkpoint_differences(path_a, path_b):
+    """{part: elements that differ} between two training checkpoints'
+    model and optimizer tensors, bit for bit."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    _, sd_a, tr_a = checkpoint.load_training(path_a)
+    _, sd_b, tr_b = checkpoint.load_training(path_b)
+    opt_a, opt_b = tr_a["optimizer"]["inner"], tr_b["optimizer"]["inner"]
+    return {
+        "model": sum(int((sd_a[k] != sd_b[k]).sum()) for k in sd_a),
+        "optimizer": sum(int((opt_a["state"][i][k] != opt_b["state"][i][k])
+                             .sum()) for i in opt_a["state"]
+                         for k in opt_a["state"][i]),
+        "count": int(tr_a["optimizer"]["count"] != tr_b["optimizer"]["count"]),
+        "sampler": int(tr_a["pipeline"] != tr_b["pipeline"])}
+
+
+def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset):
+    """pr3 f32 on the reduce route, with deterministic cuDNN (whose
+    backward otherwise sums in another order from run to run, and Adam's
+    first steps move every weight by about the learning rate whatever the
+    size of its gradient): 16 straight steps; then 8 steps to a
+    checkpoint, and resume="auto" to 16 in the same directory. The resumed
+    run starts at the saved step with the saved optimizer count and
+    sampler state, runs the 8 steps left, and ends with the straight run's
+    model, optimizer and sampler state bit for bit. Returns the launch
+    counts of the three runs and the resumed run's final checkpoint."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    ckpt_dir = f"{ckpt_root}/pr3_resume"
+    cfg = train_cfg(rppt.preset("pr3"), ckpt_dir)
+    straight_cfg = train_cfg(rppt.preset("pr3"), f"{ckpt_root}/pr3_straight")
+    first = cfg.override(**{"train.steps": STEPS_PER_CALL})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts_s, straight, _ = run_training(
+            fused, straight_cfg, "pr3 resume: 16 straight steps", dataset,
+            dev, smi)
+        counts_a, _, _ = run_training(fused, first,
+                                      "pr3 resume: first 8 steps", dataset,
+                                      dev, smi)
+        _, _, training = checkpoint.load_training(
+            checkpoint.step_path(ckpt_dir, STEPS_PER_CALL))
+        check(training["step"] == STEPS_PER_CALL
+              and training["optimizer"]["count"] == STEPS_PER_CALL
+              and training["pipeline"]["consumed"] == STEPS_PER_CALL,
+              f"checkpoint at step {STEPS_PER_CALL}: {training['step']}, "
+              f"count {training['optimizer']['count']}, "
+              f"{training['pipeline']['consumed']} batches consumed")
+        counts_b, out, times = run_training(
+            fused, cfg, "pr3 resume: resumed to 16", dataset, dev, smi,
+            state=create_state(cfg, dev),
+            expect_steps=TRAIN_STEPS - STEPS_PER_CALL)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    st = out["state"]
+    _, _, final = checkpoint.load_training(out["ckpt_path"])
+    check(len(times) == TRAIN_STEPS - STEPS_PER_CALL
+          and st.step == TRAIN_STEPS and st.optimizer.count == TRAIN_STEPS
+          and final["pipeline"]["consumed"] == TRAIN_STEPS,
+          f"resume ran {len(times)} steps to step {st.step}, count "
+          f"{st.optimizer.count}, {final['pipeline']['consumed']} batches")
+    differ = _checkpoint_differences(out["ckpt_path"], straight["ckpt_path"])
+    loss, want = out["metrics"]["loss"], straight["metrics"]["loss"]
+    print(f"resume pr3 (deterministic cuDNN): checkpoint at step "
+          f"{STEPS_PER_CALL} (optimizer count {STEPS_PER_CALL}, sampler at "
+          f"batch {STEPS_PER_CALL}); resumed {len(times)} steps from it to "
+          f"step {st.step} (count {st.optimizer.count}, sampler at batch "
+          f"{final['pipeline']['consumed']}); loss at step {TRAIN_STEPS} "
+          f"{loss!r} against {want!r} straight; elements that differ from "
+          f"the straight run's final state {differ}", flush=True)
+    check(loss == want and not any(differ.values()),
+          "the resumed run's final state differs from the straight run's")
+    launches = {k: counts_s[k] + counts_a[k] + counts_b[k] for k in counts_a}
+    return launches, out["ckpt_path"]
+
+
+def phase_evaluate(rppt, fused, dev, ckpt_path):
+    """api.evaluate_on of the resumed pr3 checkpoint on an in-memory
+    dataset of EVAL_SAMPLES, with percentiles and success rates, on the
+    card (counts set to 0 just before) against the same checkpoint on the
+    CPU. Returns the card run's launch counts."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.api import evaluate_on
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
+        PoseEstimator,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    cfg, state_dict, training = checkpoint.load_training(ckpt_path)
+    dataset = MemoryDemos(cfg, EVAL_SAMPLES, seed=8)
+    kw = dict(step=training["step"], percentiles=True,
+              success_at=((10.0, 45.0), (25.0, 90.0)))
+    reports = {}
+    for d in ("cpu", dev):
+        model = PoseEstimator(cfg.model)
+        model.load_state_dict(state_dict)
+        model.to(d)
+        _zero_counts(fused)
+        t = time.perf_counter()
+        reports[str(d)] = evaluate_on(cfg, model, dataset, **kw)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launches = _counts(fused)
+        print(f"evaluate pr3 on {d}: {time.perf_counter() - t:.2f} s",
+              flush=True)
+    want, got = reports["cpu"], reports[str(dev)]
+    check(sorted(got) == sorted(want), f"evaluate keys {sorted(got)}")
+    for k in ("loss", "pos_mae_cm", "rot_mae_deg"):
+        check(abs(got[k] - want[k]) <= EVAL_RTOL * abs(want[k]),
+              f"evaluate {k}: {got[k]} on the card, {want[k]} on the CPU")
+    for k in ("pos_err_cm", "rot_err_deg"):
+        for q, v in want[k].items():
+            check(abs(got[k][q] - v) <= EVAL_RTOL * abs(v) + EVAL_ROUNDED,
+                  f"evaluate {k} {q}: {got[k][q]} against {v}")
+    for g_row, w_row in zip(got["success"], want["success"]):
+        check(all(abs(g_row[k] - w_row[k]) <= 1.0 / EVAL_SAMPLES + 1e-4
+                  for k in ("rate", "pos_rate", "rot_rate")),
+              f"evaluate success {g_row} against {w_row}")
+    batches = EVAL_SAMPLES // cfg.data.batch_size
+    sites, _ = bn_sites(model)
+    chunks = batches + math.ceil(EVAL_SAMPLES / 64)
+    check(launches["normalize_u8"] == chunks
+          and launches["scale_bias_relu"] == sites * chunks,
+          f"evaluate launches {launches} for {chunks} forwards")
+    print(f"evaluate pr3 step {got['step']} card vs CPU: loss "
+          f"{got['loss']:.6f} vs {want['loss']:.6f}, pos_mae_cm "
+          f"{got['pos_mae_cm']:.4f} vs {want['pos_mae_cm']:.4f}, rot_mae_deg "
+          f"{got['rot_mae_deg']:.4f} vs {want['rot_mae_deg']:.4f} (rtol "
+          f"{EVAL_RTOL}); pos_err_cm {json.dumps(got['pos_err_cm'])} vs "
+          f"{json.dumps(want['pos_err_cm'])}; success {json.dumps(got['success'])}"
+          f" vs {json.dumps(want['success'])}; launches {launches}",
+          flush=True)
     return launches
 
 
@@ -1268,14 +1553,31 @@ def main() -> int:
                   f"and loads {spills} bytes", flush=True)
             check(spills == 0, f"{kernel} spills {spills} bytes")
 
+    # the JSON line's numbers are pr3's f32 sites; pr4's are printed
     summary = {"normalize_u8": phase_normalize_u8(fused, dev),
                "scale_bias_relu": phase_sbr_forward(fused, dev)}
     summary["channel_stats"] = phase_channel_stats(fused, dev)
     summary["scale_bias_relu_backward"] = phase_sbr_backward(fused, dev)
+    phase_normalize_u8(fused, dev, K1_PR4_SHAPES)
+    phase_sbr_forward(fused, dev, K2_PR4_SITES, [], "pr4", nonfinite=False)
+    phase_channel_stats(fused, dev, K3_PR4_SITES, [], "pr4")
+    phase_sbr_backward(fused, dev, K2_PR4_SITES, [], "pr4", nonfinite=False)
+    torch.cuda.empty_cache()
     # each main path is driven with the counts set to 0 just before it and
     # read just after; a kernel's launches are the sum over the paths
-    paths = {"serving": phase_serving(rppt, fused, smi)}
-    paths.update(phase_training(rppt, fused, dev, smi))
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        paths = {"serving pr3": phase_serving(rppt, fused, smi)}
+        trained, pr3_data = phase_training(rppt, fused, dev, smi,
+                                           ckpt_root)
+        paths.update(trained)
+        paths["serving pr4"] = phase_serving(
+            rppt, fused, smi, "pr4", (1, 8, PR4_BATCH), (PR4_CMP_BATCH,))
+        torch.cuda.empty_cache()
+        paths.update(phase_training_pr4(rppt, fused, dev, smi, ckpt_root))
+        paths.update(phase_training_pr2(rppt, fused, dev, smi, ckpt_root))
+        paths["resume pr3"], ckpt_path = phase_resume(
+            rppt, fused, dev, smi, ckpt_root, pr3_data)
+        paths["evaluate pr3"] = phase_evaluate(rppt, fused, dev, ckpt_path)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

@@ -9,8 +9,11 @@ every Pallas kernel replaced by a hand-written CUDA kernel for Hopper
 
     cfg = rppt.preset("pr3").override(**{"data.path": "lift.hdf5"})
     out = rppt.train(cfg)                               # runs on cuda
+    report = rppt.evaluate(cfg, percentiles=True)       # latest checkpoint
     pred = rppt.Predictor(cfg, ckpt_path=out["ckpt_path"])
     pos, quat = pred({"images": {"agentview": img}, "proprio": state})
+
+The CLI: ``python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli``.
 """
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
@@ -22,7 +25,12 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
     TrainConfig,
     preset,
 )
-from rgb_proprioceptive_pose_estimator_tpu_torch.api import Predictor, predict, train
+from rgb_proprioceptive_pose_estimator_tpu_torch.api import (
+    Predictor,
+    evaluate,
+    predict,
+    train,
+)
 
 __all__ = [
     "Config",
@@ -33,6 +41,7 @@ __all__ = [
     "preset",
     "PRESETS",
     "Predictor",
+    "evaluate",
     "predict",
     "train",
 ]

@@ -1,13 +1,11 @@
-"""Public API of the port: ``train``, ``Predictor`` and ``predict``
-(counterparts of the JAX package's ``api.train``/``api.Predictor``/
-``api.predict``). Each runs on CUDA unless asked for the CPU.
-
-``evaluate`` and the CLI come in a later slice (ROADMAP.md queue A, item 6).
+"""Public API of the port: ``train``, ``evaluate``, ``Predictor`` and
+``predict`` (counterparts of the JAX package's ``api.py``). Each runs on
+CUDA unless asked for the CPU. The CLI over them is ``cli.py``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -15,6 +13,8 @@ import torch
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import PoseEstimator
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+Step = Union[int, str, None]
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -41,6 +41,222 @@ def train(cfg: Config, device: Union[str, torch.device, None] = None
             "ckpt_path": out["ckpt_path"]}
 
 
+def load_model(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
+               device: Union[str, torch.device, None] = None
+               ) -> Tuple[PoseEstimator, int]:
+    """(cfg's model with the weights of the checkpoint that ``step`` names
+    in ``ckpt_dir`` (default train.ckpt_dir): None the latest, an int that
+    step, "best" the one train.ckpt_best_metric kept; in eval mode on
+    ``device``, that checkpoint's step)."""
+    path, got = checkpoint.resolve(ckpt_dir or cfg.train.ckpt_dir, step)
+    return _model_from(cfg, checkpoint.load(path)[1], device), got
+
+
+def _model_from(cfg: Config, state_dict: Dict[str, torch.Tensor],
+                device: Union[str, torch.device, None]) -> PoseEstimator:
+    dev = resolve_device(device)
+    model = PoseEstimator(cfg.model)
+    model.load_state_dict(state_dict, strict=True)
+    return model.to(dev).eval()
+
+
+def _eval_drop_cameras(cfg: Config, per_demo: bool,
+                       drop_cameras: Sequence[str]) -> Tuple[str, ...]:
+    """drop_cameras without repeats, after the JAX package's checks of
+    evaluate's per_demo and drop_cameras."""
+    if per_demo and cfg.data.source != "hdf5":
+        raise ValueError("evaluate(per_demo=True) requires an hdf5 "
+                         "data source (demos are HDF5 trajectories)")
+    # cli --drop-camera is repeatable: the same name twice must not trip
+    # the drop-every-input check
+    drop_cameras = tuple(dict.fromkeys(drop_cameras))
+    if drop_cameras and cfg.model.backbone == "none":
+        raise ValueError(
+            "evaluate(drop_cameras=...) is meaningless for a proprio-only "
+            "model (model.backbone='none'): there are no camera branches "
+            "to kill, the metrics would silently equal the normal eval")
+    unknown = [c for c in drop_cameras if c not in cfg.model.cameras]
+    if unknown:
+        raise ValueError(
+            f"evaluate(drop_cameras={unknown}) names cameras not in "
+            f"model.cameras={list(cfg.model.cameras)}")
+    if drop_cameras and len(drop_cameras) >= len(cfg.model.cameras) \
+            and not cfg.model.use_proprio:
+        raise ValueError(
+            "evaluate(drop_cameras=...) would drop every input: the model "
+            "has no proprio branch and all its cameras are listed")
+    return drop_cameras
+
+
+def evaluate(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
+             max_batches: int = 0, split: str = "auto",
+             data_path: Optional[str] = None, per_demo: bool = False,
+             percentiles: bool = False,
+             success_at: Sequence[Tuple[float, float]] = (),
+             dump_predictions: str = "", drop_cameras: Sequence[str] = (),
+             device: Union[str, torch.device, None] = None
+             ) -> Dict[str, Any]:
+    """Restore a checkpoint (``load_model``) and report its eval metrics
+    (loss components, pos MAE cm, rot MAE deg, ``step``) over the eval
+    pipeline (no augmentation), as the JAX package's ``api.evaluate``.
+
+    split="auto" evaluates the held-out split when data.val_fraction or
+    data.val_path is set, else the full dataset; "val" without either
+    raises. data_path evaluates another demo file (split "all"). The
+    options after it are evaluate_on's."""
+    if data_path is not None:
+        cfg = cfg.override(**{"data.path": data_path,
+                              "data.source": "hdf5",
+                              "data.val_fraction": 0.0,
+                              "data.val_path": ""})
+        if split == "auto":
+            split = "all"
+    _eval_drop_cameras(cfg, per_demo, drop_cameras)
+    has_val = cfg.data.val_fraction > 0 or bool(cfg.data.val_path)
+    if split == "auto":
+        split = "val" if has_val else "all"
+    if split == "val" and not has_val:
+        # a held-out request silently scoring the training set would
+        # report training metrics as held-out
+        raise ValueError(
+            "evaluate(split='val') requires cfg.data.val_fraction > 0 or "
+            "data.val_path; with no held-out split use split='all' "
+            "(scores the full dataset) or pass data_path= to a held-out "
+            "demo file")
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+        build_dataset,
+    )
+
+    model, got_step = load_model(cfg, ckpt_dir, step, device)
+    dataset = build_dataset(cfg, split=split)
+    return evaluate_on(cfg, model, dataset, step=got_step,
+                       max_batches=max_batches, per_demo=per_demo,
+                       percentiles=percentiles, success_at=success_at,
+                       dump_predictions=dump_predictions,
+                       drop_cameras=drop_cameras)
+
+
+def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
+                step: Optional[int] = None, max_batches: int = 0,
+                per_demo: bool = False, percentiles: bool = False,
+                success_at: Sequence[Tuple[float, float]] = (),
+                dump_predictions: str = "",
+                drop_cameras: Sequence[str] = ()) -> Dict[str, Any]:
+    """evaluate after the restore and the dataset: ``model`` (on its
+    device) over ``dataset`` (any object with the datasets' ``__len__`` and
+    ``get_batch``), the mean eval metrics over up to ``max_batches``
+    batches (0 = one epoch), with ``step`` under "step".
+
+    per_demo (hdf5 datasets) adds "per_demo", each demo's pos/rot MAE and
+    length; percentiles adds "pos_err_cm"/"rot_err_deg" p50/p90/p95/max;
+    success_at, (cm, deg) pairs, adds "success": per pair the share of
+    samples within both and each; dump_predictions writes every sample's
+    prediction and error to that .npz and adds "predictions_path". These
+    share one per-sample pass over the whole split. drop_cameras are
+    scored as dead: absent from the batch, so their encoders do not run
+    and they contribute zeroed features."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import (
+        evaluate_pipeline,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose import (
+        pose_errors,
+    )
+
+    drop_cameras = _eval_drop_cameras(cfg, per_demo, drop_cameras)
+    device = next(model.parameters()).device
+    n = len(dataset)
+    if n == 0:
+        raise ValueError("the eval split is empty")
+    pipe = HostPipeline(dataset, cfg.data, device=device, train=False,
+                        batch_size=min(cfg.data.batch_size, n))
+    try:
+        out: Dict[str, Any] = evaluate_pipeline(
+            model, pipe, cfg, max_batches=max_batches,
+            drop_cameras=drop_cameras)
+    finally:
+        pipe.close()
+    out["step"] = step
+    if not (per_demo or percentiles or success_at or dump_predictions):
+        return out
+
+    if dump_predictions and not dump_predictions.endswith(".npz"):
+        # np.savez appends it; predictions_path names the file written
+        dump_predictions += ".npz"
+    out["n_samples"] = n
+    pred = Predictor(cfg, model=model, max_batch=min(64, n),
+                     allow_missing_cameras=bool(drop_cameras))
+    pos_err = np.empty(n, np.float32)
+    rot_err = np.empty(n, np.float32)
+    dump: Dict[str, np.ndarray] = {
+        "pred_pos": np.empty((n, 3), np.float32),
+        "pred_quat": np.empty((n, 4), np.float32),
+        "target_pos": np.empty((n, 3), np.float32),
+        "target_quat": np.empty((n, 4), np.float32),
+    } if dump_predictions else {}
+    for lo in range(0, n, 256):
+        idx = np.arange(lo, min(lo + 256, n))
+        batch = dataset.get_batch(idx, augment=False, seed=0)
+        tpos = np.asarray(batch.pop("target_pos"), np.float32)
+        tquat = np.asarray(batch.pop("target_quat"), np.float32)
+        for cam in drop_cameras:
+            batch["images"].pop(cam)
+        pos, quat = pred(batch)
+        pe, re_ = pose_errors(*(torch.from_numpy(a)
+                                for a in (pos, quat, tpos, tquat)))
+        pos_err[idx] = pe.numpy()
+        rot_err[idx] = re_.numpy()
+        if dump:
+            dump["pred_pos"][idx] = pos
+            dump["pred_quat"][idx] = quat
+            dump["target_pos"][idx] = tpos
+            dump["target_quat"][idx] = tquat
+
+    if dump_predictions:
+        dump["pos_err_cm"] = pos_err
+        dump["rot_err_deg"] = rot_err
+        if hasattr(dataset, "_index"):          # hdf5: trajectory coordinates
+            dump["demo_idx"] = dataset._index[:, 0]
+            dump["t"] = dataset._index[:, 1]
+            dump["demo_keys"] = np.asarray(dataset._demo_keys)
+        np.savez(dump_predictions, **dump)
+        out["predictions_path"] = dump_predictions
+
+    if percentiles:
+        def qtable(err: np.ndarray) -> Dict[str, float]:
+            p50, p90, p95 = np.percentile(err, [50, 90, 95])
+            return {"p50": round(float(p50), 3), "p90": round(float(p90), 3),
+                    "p95": round(float(p95), 3),
+                    "max": round(float(err.max()), 3)}
+
+        out["pos_err_cm"] = qtable(pos_err)
+        out["rot_err_deg"] = qtable(rot_err)
+
+    if success_at:
+        rows = []
+        for pos_cm, rot_deg in success_at:
+            pos_ok = pos_err <= float(pos_cm)
+            rot_ok = rot_err <= float(rot_deg)
+            rows.append({"pos_cm": float(pos_cm), "rot_deg": float(rot_deg),
+                         "rate": round(float((pos_ok & rot_ok).mean()), 4),
+                         "pos_rate": round(float(pos_ok.mean()), 4),
+                         "rot_rate": round(float(rot_ok.mean()), 4)})
+        out["success"] = rows
+
+    if per_demo:
+        demo_ids = dataset._index[:, 0]
+        per: Dict[str, Dict[str, float]] = {}
+        for di, key in enumerate(dataset._demo_keys):
+            mask = demo_ids == di
+            per[key] = {"pos_mae_cm": round(float(pos_err[mask].mean()), 3),
+                        "rot_mae_deg": round(float(rot_err[mask].mean()), 3),
+                        "steps": int(mask.sum())}
+        out["per_demo"] = per
+    return out
+
+
 class Predictor:
     """Pose predictor: obs -> (pos, quat).
 
@@ -52,7 +268,10 @@ class Predictor:
     ``max_batch`` samples.
 
     Weights come from ``state_dict`` (e.g. ``utils.convert.
-    state_dict_from_jax``) or a checkpoint file (``utils.checkpoint``).
+    state_dict_from_jax``), a checkpoint file (``ckpt_path``), a model
+    already built (``model``, on its device), or else the checkpoint that
+    ``step`` names in ``ckpt_dir`` (``load_model``: default the latest in
+    train.ckpt_dir).
 
     A configured camera may be omitted from obs (sensor died) when the
     model trained with model.camera_dropout > 0 or with
@@ -65,18 +284,27 @@ class Predictor:
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  max_batch: int = 8,
                  device: Union[str, torch.device, None] = None,
-                 allow_missing_cameras: bool = False):
-        if (ckpt_path is None) == (state_dict is None):
-            raise ValueError("pass exactly one of ckpt_path and state_dict")
+                 allow_missing_cameras: bool = False,
+                 ckpt_dir: Optional[str] = None, step: Step = None,
+                 model: Optional[PoseEstimator] = None):
+        given = [k for k, v in (("ckpt_path", ckpt_path),
+                                ("state_dict", state_dict), ("model", model))
+                 if v is not None]
+        if len(given) > 1 or (given and (ckpt_dir is not None
+                                         or step is not None)):
+            raise ValueError("pass at most one of ckpt_path, state_dict and "
+                             "model, and ckpt_dir/step only without them")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        self.device = resolve_device(device)
         self.cfg = cfg
-        if state_dict is None:
-            _, state_dict = checkpoint.load(ckpt_path)
-        model = PoseEstimator(cfg.model)
-        model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).eval()
+        if ckpt_path is not None:
+            state_dict = checkpoint.load(ckpt_path)[1]
+        if state_dict is not None:
+            model = _model_from(cfg, state_dict, device)
+        elif model is None:
+            model, _ = load_model(cfg, ckpt_dir, step, device)
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
         self.max_batch = max_batch
         self.allow_missing_cameras = (allow_missing_cameras
                                       or cfg.model.camera_dropout > 0)
@@ -84,8 +312,9 @@ class Predictor:
     def _batched(self, obs: Dict[str, Any]
                  ) -> Tuple[Dict[str, Any], int, bool]:
         m = self.cfg.model
-        present = [c for c in m.cameras if c in obs.get("images", {})]
-        missing = [c for c in m.cameras if c not in present]
+        cameras = self.model.cameras
+        present = [c for c in cameras if c in obs.get("images", {})]
+        missing = [c for c in cameras if c not in present]
         if missing and not self.allow_missing_cameras:
             raise KeyError(
                 f"obs['images'] is missing cameras {missing} of "
@@ -133,7 +362,7 @@ class Predictor:
         t = (m.temporal_frames,) if m.temporal_frames > 1 else ()
         obs: Dict[str, Any] = {"images": {
             c: np.zeros((self.max_batch, *t, m.image_size, m.image_size, 3),
-                        np.uint8) for c in m.cameras}}
+                        np.uint8) for c in self.model.cameras}}
         if m.use_proprio:
             obs["proprio"] = np.zeros(
                 (self.max_batch, *t, m.proprio_dim), np.float32)
@@ -161,8 +390,10 @@ class Predictor:
         return pos, quat
 
 
-def predict(cfg: Config, obs: Dict[str, Any], ckpt_path: str,
-            device: Union[str, torch.device, None] = None
+def predict(cfg: Config, obs: Dict[str, Any], ckpt_path: Optional[str] = None,
+            device: Union[str, torch.device, None] = None,
+            ckpt_dir: Optional[str] = None, step: Step = None
             ) -> Tuple[np.ndarray, np.ndarray]:
     """One-shot convenience wrapper; use ``Predictor`` for repeated calls."""
-    return Predictor(cfg, ckpt_path=ckpt_path, device=device)(obs)
+    return Predictor(cfg, ckpt_path=ckpt_path, device=device,
+                     ckpt_dir=ckpt_dir, step=step)(obs)

@@ -3,24 +3,26 @@
 
 ``fit(cfg, device)`` builds the datasets and a fresh state and hands them
 to ``train_on``, which does everything after: proprio statistics from the
-train split, the train and eval pipelines, the steps in calls of
+train split, resume from ``train.ckpt_dir`` (``train.resume``: the latest
+checkpoint, none, or an explicit step; model, optimizer, step and sampler
+state), the train and eval pipelines, the steps in calls of
 ``train.steps_per_call`` (a plain loop with the JAX package's cadence
-checks), log, eval and checkpoint cadences, save on SIGTERM, and the final
-checkpoint.
+checks), log, eval and checkpoint cadences, the best-eval checkpoint
+(``train.ckpt_best_metric``), save on SIGTERM, and the final checkpoint.
 
 Not in the port yet, and refused rather than ignored
-(``check_fit_supported``): resuming from an existing checkpoint and
-best-metric checkpoints (ROADMAP.md queue A, item 5); warm starts, early
-stopping, EMA and the other training extras (item 9); more than one
-device (item 8).
+(``check_fit_supported``): warm starts, early stopping, EMA and the other
+training extras (ROADMAP.md queue A, item 9); more than one device
+(item 8).
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -42,13 +44,18 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.utils.metrics import MetricsLog
 
 
 def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
-                      cfg: Config, max_batches: int = 0,
-                      start: int = 0) -> Dict[str, float]:
+                      cfg: Config, max_batches: int = 0, start: int = 0,
+                      drop_cameras: Sequence[str] = ()) -> Dict[str, float]:
     """Average eval metrics over (up to) one epoch; ``start`` rotates
-    partial passes across the split (HostPipeline.epoch)."""
+    partial passes across the split (HostPipeline.epoch). ``drop_cameras``
+    are removed from every batch: scored as dead sensors."""
     sums: Dict[str, float] = {}
     n = 0
     for batch in pipeline.epoch(max_batches=max_batches, start=start):
+        if drop_cameras:
+            batch = dict(batch, images={k: v for k, v in
+                                        batch["images"].items()
+                                        if k not in drop_cameras})
         for k, v in eval_step(model, batch, cfg.train).items():
             sums[k] = sums.get(k, 0.0) + float(v)
         n += 1
@@ -65,7 +72,6 @@ def check_fit_supported(cfg: Config) -> None:
             "one device (data parallelism comes with ROADMAP.md queue A, "
             "item 8)")
     later = {
-        "train.ckpt_best_metric": (bool(t.ckpt_best_metric), 5),
         "train.init_from": (bool(t.init_from), 9),
         "train.init_from_torch": (bool(t.init_from_torch), 9),
         "train.early_stop_patience > 0": (t.early_stop_patience > 0, 9),
@@ -87,8 +93,9 @@ def check_fit_supported(cfg: Config) -> None:
 
 
 def fit(cfg: Config, device: torch.device) -> Dict[str, Any]:
-    """Train per cfg on ``device`` from freshly initialized weights
-    (seed train.seed); returns train_on's result."""
+    """Train per cfg on ``device`` from freshly initialized weights (seed
+    train.seed), or from the checkpoint in train.ckpt_dir that
+    train.resume names; returns train_on's result."""
     check_fit_supported(cfg)
     has_val = cfg.data.val_fraction > 0 or bool(cfg.data.val_path)
     dataset = build_dataset(cfg, split="train" if has_val else "all")
@@ -113,23 +120,25 @@ def _check_cadence(cfg: Config) -> int:
     return spc
 
 
-def _check_no_checkpoint(cfg: Config) -> None:
+def _resume_step(cfg: Config) -> Optional[int]:
+    """The step train.resume takes up in train.ckpt_dir: None for a fresh
+    run, else the latest checkpoint's ("auto") or the explicit one."""
     tcfg = cfg.train
-    latest = checkpoint.steps(tcfg.ckpt_dir)
-    if tcfg.resume not in ("auto", "none") and not latest:
+    saved = checkpoint.steps(tcfg.ckpt_dir)
+    if tcfg.resume not in ("auto", "none") and not saved:
         raise FileNotFoundError(
             f"train.resume={tcfg.resume!r} but {tcfg.ckpt_dir} contains no "
             "checkpoint")
-    if latest and tcfg.resume == "none":
+    if not saved:
+        return None
+    if tcfg.resume == "none":
+        # interleaving a fresh run into an existing history would
+        # overwrite it step by step
         raise ValueError(
             f"train.resume='none' but {tcfg.ckpt_dir} already contains a "
-            f"checkpoint at step {latest[-1]}; use a fresh ckpt_dir or "
+            f"checkpoint at step {saved[-1]}; use a fresh ckpt_dir or "
             "resume='auto'")
-    if latest:
-        raise NotImplementedError(
-            f"{tcfg.ckpt_dir} holds a checkpoint at step {latest[-1]}: "
-            "resuming is not in the port yet (ROADMAP.md queue A, item 5); "
-            "use a fresh train.ckpt_dir")
+    return saved[-1] if tcfg.resume == "auto" else int(tcfg.resume)
 
 
 def train_on(cfg: Config, state: TrainState, dataset, eval_ds
@@ -142,18 +151,46 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
     check_fit_supported(cfg)
     tcfg = cfg.train
     spc = _check_cadence(cfg)
-    _check_no_checkpoint(cfg)
+    if tcfg.ckpt_best_metric and not tcfg.eval_every:
+        raise ValueError(
+            "train.ckpt_best_metric requires train.eval_every > 0 "
+            "(best tracking selects on eval metrics)")
+    resume = _resume_step(cfg)
     model = state.model
     device = next(model.parameters()).device
 
     if cfg.model.use_proprio and cfg.model.proprio_normalize:
-        # train-split obs-normalization statistics into the model buffers
+        # train-split obs-normalization statistics into the model buffers;
+        # a resumed run's checkpoint overwrites them below, so it keeps
+        # the statistics its weights were trained with
         mean, std = dataset.proprio_stats()
         with torch.no_grad():
             model.proprio.proprio_mean.copy_(torch.from_numpy(mean))
             model.proprio.proprio_std.copy_(torch.from_numpy(std))
 
+    start_step = 0
+    best_val = float("inf")
+    ckpt_path: Optional[str] = None
+    if resume is not None:
+        ckpt_path, _ = checkpoint.resolve(tcfg.ckpt_dir, resume)
+        _, state_dict, training = checkpoint.load_training(ckpt_path)
+        model.load_state_dict(state_dict, strict=True)
+        state.optimizer.load_state_dict(training["optimizer"])
+        state.step = start_step = int(training["step"])
+        best_dir = os.path.join(tcfg.ckpt_dir, checkpoint.BEST)
+        if tcfg.ckpt_best_metric and checkpoint.steps(best_dir):
+            # the best so far, so that a worse eval after the resume does
+            # not replace the true best
+            best = checkpoint.load_training(checkpoint.resolve(best_dir)[0])
+            best_val = float(best[2].get("best_val", best_val))
+    if spc > 1 and (tcfg.steps - start_step) % spc != 0:
+        raise ValueError(
+            f"resume step {start_step} leaves {tcfg.steps - start_step} "
+            f"steps, not a multiple of train.steps_per_call={spc}")
+
     train_pipe = HostPipeline(dataset, cfg.data, device=device, train=True)
+    if resume is not None:
+        train_pipe.load_state_dict(training["pipeline"])
     eval_bs = min(cfg.data.batch_size, len(eval_ds))
     if eval_bs == 0:
         raise ValueError("the eval split is empty; increase "
@@ -165,11 +202,15 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
     logger = MetricsLogger(metrics_path, tensorboard=tcfg.tensorboard,
                            tb_dir=tcfg.ckpt_dir)
 
+    def training_state(**extra) -> Dict[str, Any]:
+        return {"step": state.step, "optimizer": state.optimizer.state_dict(),
+                "pipeline": train_pipe.state_dict(), **extra}
+
     def save(step: int) -> str:
-        return checkpoint.save_step(
-            tcfg.ckpt_dir, step, tcfg.ckpt_keep, cfg, model.state_dict(),
-            {"step": state.step, "optimizer": state.optimizer.state_dict(),
-             "pipeline": train_pipe.state_dict()})
+        # a step saved by an earlier run (an explicit-step resume re-walks
+        # them) is replaced
+        return checkpoint.save_step(tcfg.ckpt_dir, step, tcfg.ckpt_keep, cfg,
+                                    model.state_dict(), training_state())
 
     # save on SIGTERM (train.save_on_signal): finish the step in flight,
     # checkpoint it and return; only from the main thread, where Python
@@ -187,16 +228,15 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
 
     last_metrics: Dict[str, float] = {}
     last_saved: Optional[int] = None
-    ckpt_path: Optional[str] = None
     final_step = tcfg.steps
-    log_anchor = 0
+    log_anchor = start_step
     t_log = time.perf_counter()
     try:
-        for step_i in range(0, tcfg.steps, spc):
+        for step_i in range(start_step, tcfg.steps, spc):
             for _ in range(spc):
                 m = train_step(state, next(train_pipe), tcfg)
             step1 = step_i + spc
-            if step_i == 0 and tcfg.log_every > 1:
+            if step_i == start_step and tcfg.log_every > 1:
                 # keep the first call (kernel builds, cuDNN plans) out of
                 # the first throughput window
                 float(m["loss"])
@@ -226,6 +266,17 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                                        start=eval_start)
                 logger.log(step1, em, prefix="eval/")
                 last_metrics.update({f"eval_{k}": v for k, v in em.items()})
+                if tcfg.ckpt_best_metric:
+                    v = em.get(tcfg.ckpt_best_metric)
+                    if v is None:
+                        raise KeyError(
+                            f"ckpt_best_metric {tcfg.ckpt_best_metric!r} "
+                            f"not in eval metrics {sorted(em)}")
+                    if v < best_val:
+                        best_val = v
+                        checkpoint.save_best(
+                            tcfg.ckpt_dir, step1, cfg, model.state_dict(),
+                            training_state(best_val=float(v)))
                 # eval time is not train throughput
                 t_log = time.perf_counter()
                 log_anchor = step1
@@ -238,7 +289,8 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                 logger.log(step1, {"preempted_at": float(step1)},
                            prefix="train/")
                 break
-        if final_step > 0 and last_saved != final_step:
+        # nothing to save when a finished run is run again
+        if start_step < final_step and last_saved != final_step:
             ckpt_path = save(final_step)
         logger.close()
         train_pipe.close()

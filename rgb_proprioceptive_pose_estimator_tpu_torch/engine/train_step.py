@@ -124,6 +124,13 @@ class Optimizer:
     def state_dict(self) -> Dict:
         return {"inner": self.inner.state_dict(), "count": self.count}
 
+    def load_state_dict(self, state: Dict) -> None:
+        """The inner optimizer's state and the update count, which the
+        learning-rate schedule reads: a resumed run goes on at the saved
+        point of its warmup and decay."""
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])
+
 
 def _loss(model, batch, cfg: TrainConfig):
     pos, quat = model(batch)

@@ -13,7 +13,8 @@ f32.
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +57,10 @@ class BatchNormAct(nn.Module):
     Train mode also updates the running statistics, outside autograd, as
     torch does: ``running = momentum * running + (1 - momentum) * batch``
     with the flax ``momentum`` 0.9 (torch's 0.1) and the unbiased
-    ``n / (n - 1)`` variance.
+    ``n / (n - 1)`` variance; not while ``update_running`` is False, which
+    ``running_stats_frozen`` sets for the recomputation of an activation
+    checkpoint (so that a step updates them once, as flax's ``nn.remat``
+    does).
 
     With ``act`` the eval epilogue is the ``scale_bias_relu`` kernel
     (output in x's dtype, which is the compute dtype); without it, plain
@@ -74,6 +78,7 @@ class BatchNormAct(nn.Module):
         self.compute_dtype = compute_dtype
         self.stats_impl = stats_impl
         self.momentum = momentum
+        self.update_running = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -115,31 +120,71 @@ class BatchNormAct(nn.Module):
             if self.act:
                 y = torch.relu(y)
             y = y.to(self.compute_dtype)
-        self._update_running(mean.detach(), var.detach(), n)
+        if self.update_running:
+            self._update_running(mean.detach(), var.detach(), n)
         return y
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module) -> Iterator[None]:
+    """Inside the block, the BatchNormAct layers of ``module`` leave their
+    running statistics as they are (the recomputation of an activation
+    checkpoint: the forward that ran first has updated them)."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNormAct)]
+    for m in layers:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.update_running = True
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax ``padding="SAME"`` along one dim: the output has
+    ceil(size / stride) positions, and the padding they need is split low
+    ``floor(p / 2)``, high ``ceil(p / 2)`` ((0, 1) for 64 -> 32 at k = 3)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
 
 
 class ConvBNReLU(nn.Module):
     """conv (no bias) -> BatchNormAct, the unit whose epilogue is the
-    scale-bias-ReLU kernel."""
+    scale-bias-ReLU kernel.
+
+    ``padding`` is symmetric per dim, torch's convention, or ``"SAME"``,
+    flax's: padded by ``same_padding`` with ``F.pad`` (which keeps
+    ``channels_last``) before a pad-0 conv, since flax pads a stride-2
+    conv on the high side only where torch's ``padding=1`` pads both."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  stride: Tuple[int, int] = (1, 1),
-                 padding: Tuple[int, int] = (1, 1), act: bool = True,
+                 padding: Union[Tuple[int, int], str] = (1, 1),
+                 act: bool = True,
                  eps: float = 1e-5,
                  compute_dtype: torch.dtype = torch.float32,
                  bn_stats: str = "reduce"):
         super().__init__()
+        if isinstance(padding, str) and padding != "SAME":
+            raise ValueError(f"padding must be a pair or 'SAME', got "
+                             f"{padding!r}")
         self.compute_dtype = compute_dtype
-        self.conv = nn.Conv2d(in_features, features, kernel, stride, padding,
-                              bias=False)
+        self.same = padding == "SAME"
+        self.conv = nn.Conv2d(in_features, features, kernel, stride,
+                              0 if self.same else padding, bias=False)
         self.bn = BatchNormAct(features, eps=eps, act=act,
                                compute_dtype=compute_dtype,
                                stats_impl=bn_stats)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
+        if self.same:
+            (top, bottom), (left, right) = (
+                same_padding(n, k, s) for n, k, s in
+                zip(x.shape[-2:], c.kernel_size, c.stride))
+            x = F.pad(x, (left, right, top, bottom))
         x = F.conv2d(x.to(self.compute_dtype),
                      c.weight.to(self.compute_dtype), None, c.stride,
                      c.padding)

@@ -2,7 +2,9 @@
 ``models/fusion.py``), in train and eval mode.
 
 Input batch dict, tensors on the model's device:
-    batch["images"][camera] : uint8 (B, H, W, 3) or (B, T, H, W, 3)
+    batch["images"][camera] : uint8 (B, H, W, 3) or (B, T, H, W, 3); not
+                              read (and may be left out) with
+                              model.backbone="none", the proprio-only model
     batch["proprio"]        : float32 (B, D) or (B, T, D)
     batch["camera_mask"]    : float32 (B, n_cameras), optional; 0 = that
                               camera is dead and its features are zeroed
@@ -12,10 +14,11 @@ the all-zero feature vector and its encoder does not run.
 
 Output: (pos (B, 3) float32, quat (B, 4) float32 unit-normalized).
 
-The port covers the ResNet-18 backbone, T frames stacked along channels,
-and the quaternion head; the other backbones, the LSTM temporal mode, the
-rot6d head and training with camera or proprio dropout come in later
-slices (ROADMAP.md queue A) and raise here.
+The port covers the backbones none, cnn_small, resnet18, resnet34 and
+resnet50 (with model.remat), T frames stacked along channels, and the
+quaternion head; the ViT backbone, the LSTM temporal mode, the rot6d head
+and training with camera or proprio dropout come in later slices
+(ROADMAP.md queue A) and raise here.
 """
 
 from __future__ import annotations
@@ -27,8 +30,13 @@ from torch import nn
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import ModelConfig
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import Dense
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.cnn_small import CNNSmall
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.proprio_mlp import ProprioMLP
-from rgb_proprioceptive_pose_estimator_tpu_torch.models.resnet import ResNet18
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.resnet import (
+    ResNet18,
+    ResNet34,
+    ResNet50,
+)
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.image_device import (
     normalize_images,
 )
@@ -50,11 +58,10 @@ def _stack_temporal(img: torch.Tensor) -> torch.Tensor:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for model options this slice lacks."""
-    if cfg.backbone != "resnet18":
+    if cfg.backbone == "vit":
         raise NotImplementedError(
-            f"model.backbone={cfg.backbone!r}: the port runs resnet18 so "
-            "far; the other backbones come in a later slice (ROADMAP.md "
-            "queue A, items 7 and 10)")
+            "model.backbone='vit': the ViT backbone comes in a later slice "
+            "(ROADMAP.md queue A, item 10)")
     if cfg.rot_rep != "quat":
         raise NotImplementedError(
             f"model.rot_rep={cfg.rot_rep!r}: the port has the quat head so "
@@ -79,10 +86,26 @@ def check_trainable(cfg: ModelConfig) -> None:
             "a later slice (ROADMAP.md queue A, item 9)")
 
 
+_RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34,
+            "resnet50": ResNet50}
+
+
+def _encoder(cfg: ModelConfig, dtype: torch.dtype) -> nn.Module:
+    """One camera's image encoder for cfg.backbone."""
+    in_channels = 3 * cfg.temporal_frames
+    if cfg.backbone == "cnn_small":
+        return CNNSmall(features=cfg.image_features, in_channels=in_channels,
+                        compute_dtype=dtype, bn_stats=cfg.bn_stats)
+    return _RESNETS[cfg.backbone](
+        features=cfg.image_features, in_channels=in_channels,
+        compute_dtype=dtype, bn_stats=cfg.bn_stats, remat=cfg.remat)
+
+
 class PoseEstimator(nn.Module):
-    """Per-camera ResNet-18 encoders + proprio MLP, concatenated into the
-    pose head. Submodule names follow the JAX parameter tree
-    (``encoder_<camera>``, ``proprio``, ``head<i>``, ``pose_out``)."""
+    """Per-camera image encoders (none with model.backbone="none") +
+    proprio MLP, concatenated into the pose head. Submodule names follow
+    the JAX parameter tree (``encoder_<camera>``, ``proprio``, ``head<i>``,
+    ``pose_out``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -90,12 +113,10 @@ class PoseEstimator(nn.Module):
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.compute_dtype = dtype
-        for cam in cfg.cameras:
-            self.add_module(f"encoder_{cam}", ResNet18(
-                features=cfg.image_features,
-                in_channels=3 * cfg.temporal_frames, compute_dtype=dtype,
-                bn_stats=cfg.bn_stats))
-        d = cfg.image_features * len(cfg.cameras)
+        self.cameras = () if cfg.backbone == "none" else tuple(cfg.cameras)
+        for cam in self.cameras:
+            self.add_module(f"encoder_{cam}", _encoder(cfg, dtype))
+        d = cfg.image_features * len(self.cameras)
         if cfg.use_proprio:
             self.proprio = ProprioMLP(
                 cfg.proprio_dim, frames=cfg.temporal_frames,
@@ -112,9 +133,9 @@ class PoseEstimator(nn.Module):
         cfg = self.cfg
         if self.training:
             check_trainable(cfg)
-        images = batch["images"]
-        present = [c for c in cfg.cameras if c in images]
-        if not present and not cfg.use_proprio:
+        images = batch["images"] if self.cameras else {}
+        present = [c for c in self.cameras if c in images]
+        if self.cameras and not present and not cfg.use_proprio:
             raise ValueError(
                 f"batch['images'] supplies none of the model's cameras "
                 f"{list(cfg.cameras)} and the model has no proprio branch")
@@ -122,7 +143,7 @@ class PoseEstimator(nn.Module):
              else batch["proprio"].shape[0])
         cam_mask = batch.get("camera_mask")
         feats = []
-        for ci, cam in enumerate(cfg.cameras):
+        for ci, cam in enumerate(self.cameras):
             img = images.get(cam)
             if img is None:
                 # dead sensor: the zeroed features, without the encoder
@@ -138,6 +159,8 @@ class PoseEstimator(nn.Module):
             feats.append(f)
         if cfg.use_proprio:
             feats.append(self.proprio(batch["proprio"]))
+        if not feats:
+            raise ValueError("model has neither image nor proprio inputs")
 
         h = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
         for i in range(len(cfg.head_hidden)):

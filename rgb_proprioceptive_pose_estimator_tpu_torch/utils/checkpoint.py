@@ -2,10 +2,12 @@
 ``{"config": cfg.to_dict(), "state_dict": ...}``, and for a training
 checkpoint also ``"training": {"step", "optimizer", "pipeline"}`` (the
 update count and the torch optimizer's state, and the sampler state of the
-train pipeline).
+train pipeline), with ``"best_val"`` in a best checkpoint.
 
 ``fit`` writes ``<train.ckpt_dir>/step_<step>.pt`` and keeps the newest
-``train.ckpt_keep``.
+``train.ckpt_keep``; with ``train.ckpt_best_metric`` it also keeps the
+checkpoint of the best eval so far, alone, in ``<train.ckpt_dir>/best``.
+``resolve`` turns (ckpt_dir, step) into a file for every reader.
 
 The JAX package's orbax checkpoints need JAX to read; converting them is
 a tool outside the port's runtime (``utils.convert.state_dict_from_jax``
@@ -16,13 +18,14 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+BEST = "best"
 
 
 def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor],
@@ -78,3 +81,44 @@ def save_step(ckpt_dir: str, step: int, keep: int, cfg: Config,
         for old in steps(ckpt_dir)[:-keep]:
             os.remove(step_path(ckpt_dir, old))
     return path
+
+
+def save_best(ckpt_dir: str, step: int, cfg: Config,
+              state_dict: Dict[str, torch.Tensor],
+              training: Dict[str, Any]) -> str:
+    """Write step_<step>.pt in <ckpt_dir>/best and delete every other
+    checkpoint there: the directory holds the best so far, and only it.
+    ``training`` carries its ``best_val``. Returns the new file's path."""
+    best = os.path.join(ckpt_dir, BEST)
+    path = save_step(best, step, 0, cfg, state_dict, training)
+    for old in steps(best):
+        if old != step:
+            os.remove(step_path(best, old))
+    return path
+
+
+def resolve(ckpt_dir: str, step: Union[int, str, None] = None
+            ) -> Tuple[str, int]:
+    """(file, step) of the checkpoint that ``step`` names in ckpt_dir: the
+    latest for None, that step for an int, and the one in
+    <ckpt_dir>/best for "best" (which train.ckpt_best_metric keeps).
+    Raises FileNotFoundError where there is none."""
+    if step == BEST:
+        ckpt_dir = os.path.join(ckpt_dir, BEST)
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(
+                f"no best checkpoint at {ckpt_dir}: train with "
+                "train.ckpt_best_metric set (and train.eval_every > 0)")
+        step = None
+    elif isinstance(step, str):
+        raise ValueError(f"step must be an int, None, or 'best'; "
+                         f"got {step!r}")
+    found = steps(ckpt_dir)
+    if step is None:
+        if not found:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        step = found[-1]
+    elif step not in found:
+        raise FileNotFoundError(f"no checkpoint of step {step} in "
+                                f"{ckpt_dir} (it has {found})")
+    return step_path(ckpt_dir, step), step

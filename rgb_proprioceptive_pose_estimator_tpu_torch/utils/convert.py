@@ -47,11 +47,10 @@ def port_shapes(model_cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def state_dict_from_jax(variables: Mapping[str, Any],
-                        model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The JAX package's variables for model_cfg -> the port's state_dict
-    (f32 CPU tensors). Raises ValueError on a leaf the port has no place
-    for, a port key no leaf fills, or a shape that differs."""
+def port_arrays(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{port state_dict key: f32 array in the port's layout} for every leaf
+    of a JAX variable tree (a whole model's or one module's). Raises
+    ValueError on a leaf the port has no place for."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unknown variable collections {sorted(unknown)}")
@@ -85,7 +84,15 @@ def state_dict_from_jax(variables: Mapping[str, Any],
                              "in the port")
         put(".".join(mods + [_STATS_TO_PORT[name]]),
             np.asarray(leaf, dtype=np.float32), path)
+    return out
 
+
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's variables for model_cfg -> the port's state_dict
+    (f32 CPU tensors). Raises ValueError on a leaf the port has no place
+    for, a port key no leaf fills, or a shape that differs."""
+    out = port_arrays(variables)
     shapes = port_shapes(model_cfg)
     missing = sorted(set(shapes) - set(out))
     extra = sorted(set(out) - set(shapes))
@@ -120,9 +127,16 @@ def random_jax_variables(model_cfg: ModelConfig, seed: int = 0
     dense kernels, and biases, BatchNorm affines and running statistics
     and proprio statistics far enough from identity that every folded
     scale and shift matters."""
+    return random_variables_for(port_shapes(model_cfg), seed)
+
+
+def random_variables_for(shapes: Mapping[str, Tuple[int, ...]],
+                         seed: int = 0) -> Dict[str, Any]:
+    """random_jax_variables for the port state_dict keys and shapes
+    ``shapes`` (a whole model's or one module's)."""
     rng = np.random.default_rng(seed)
     tree: Dict[str, Any] = {}
-    for key, shape in port_shapes(model_cfg).items():
+    for key, shape in shapes.items():
         name = key.rsplit(".", 1)[-1]
         if name == "weight" and len(shape) == 4:
             fan_out = shape[0] * shape[2] * shape[3]

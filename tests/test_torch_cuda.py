@@ -148,8 +148,10 @@ def test_bn_relu_kernels_place_nan_and_inf_as_plain(cuda, direction, dtype):
     assert ((ds - rds).abs() <= tol_s)[fin].all()
     assert ((db - rdb).abs() <= tol_b)[fin].all()
 STEM_SHAPE = (128, 64, 64, 64)
+# (12544, 2048): pr4's widest BatchNorm, (256, 2048, 7, 7) as rows
 REDUCTION_SHAPES = [(8, 64, 32, 32), (16, 512, 4, 4), (100003, 64),
-                    (1000, 3), STEM_SHAPE, (4099, 100), (MISALIGNED, 4099, 64)]
+                    (1000, 3), STEM_SHAPE, (4099, 100), (MISALIGNED, 4099, 64),
+                    (12544, 2048)]
 
 
 def _stats_inputs(shape, dtype, cuda, seed, shift=0.5):
@@ -357,6 +359,60 @@ def test_training_step_on_cuda_matches_cpu_and_runs_the_kernels(cuda,
         np.testing.assert_allclose(lg, lc, rtol=1e-4)
         for k in gc:
             assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
+BOTTLENECK_SEED = 0
+
+
+def test_bottleneck_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
+    """A (1, 1, 1, 1) Bottleneck ResNet, pr4's block widths (64 to 2048),
+    one train step on the card against the CPU on both BN routes, f32 with
+    TF32 off: loss rtol 1e-4, every gradient within 1e-3 of its tensor's
+    largest, running statistics rtol 1e-4 atol 1e-5, and the kernel
+    launches of its sites (9 BN-ReLU sites, 17 BatchNorms). The seed's
+    ReLU inputs have no tie at 0 between the card and the CPU (checked on
+    an H100 with chip_smoke.ReluTape)."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.resnet import (
+        ResNet,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rs = np.random.RandomState(BOTTLENECK_SEED)
+    x = torch.from_numpy(rs.randn(4, 64, 64, 3).astype(np.float32))
+    g = torch.from_numpy(rs.randn(4, 64).astype(np.float32))
+    for route, want in (("reduce", (9, 9, 0)), ("pallas", (0, 0, 17))):
+        torch.manual_seed(BOTTLENECK_SEED)
+        cpu = ResNet((1, 1, 1, 1), "bottleneck", features=64,
+                     bn_stats=route)
+        state = {k: v.clone() for k, v in cpu.state_dict().items()}
+        runs = {}
+        for dev in ("cpu", cuda):
+            model = ResNet((1, 1, 1, 1), "bottleneck", features=64,
+                           bn_stats=route)
+            model.load_state_dict(state)
+            model.to(dev).train()
+            counts = (fused.scale_bias_relu.launches,
+                      fused.scale_bias_relu_backward.launches,
+                      fused.channel_stats.launches)
+            loss = (model(x.to(dev)) * g.to(dev)).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            seen = (fused.scale_bias_relu.launches - counts[0],
+                    fused.scale_bias_relu_backward.launches - counts[1],
+                    fused.channel_stats.launches - counts[2])
+            assert seen == (want if dev != "cpu" else (0, 0, 0)), route
+            runs[str(dev)] = (loss.item(),
+                              {k: p.grad.cpu()
+                               for k, p in model.named_parameters()},
+                              {k: b.cpu() for k, b in model.named_buffers()})
+        (lc, gc, bc), (lg, gg, bg) = runs["cpu"], runs[str(cuda)]
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+        for k in gc:
+            assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+        for k in bc:
+            torch.testing.assert_close(bg[k], bc[k], rtol=1e-4, atol=1e-5)
 
 
 def test_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):

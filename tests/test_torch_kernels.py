@@ -243,6 +243,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case, error):
 STEP_REDUCTION_SITES = [(128 * 64 * 64, 64), (128 * 32 * 32, 64),
                        (128 * 16 * 16, 128), (128 * 8 * 8, 256),
                        (128 * 4 * 4, 512)]
+# (M, C) of a pr4 step at batch 256 (ResNet-50 at 224x224): the BN-ReLU
+# sites (the stem and each Bottleneck's conv1 and conv2), then the other
+# BatchNorms (conv3 and the shortcuts), up to C = 2048 at 7x7
+PR4_SBR_SITES = [(256 * 112 * 112, 64), (256 * 56 * 56, 64),
+                 (256 * 56 * 56, 128), (256 * 28 * 28, 128),
+                 (256 * 28 * 28, 256), (256 * 14 * 14, 256),
+                 (256 * 14 * 14, 512), (256 * 7 * 7, 512)]
+PR4_REDUCTION_SITES = PR4_SBR_SITES + [
+    (256 * 56 * 56, 256), (256 * 28 * 28, 512), (256 * 14 * 14, 1024),
+    (256 * 7 * 7, 2048)]
 RAGGED_REDUCTIONS = [(100003, 64), (4099, 64), (4099, 100), (1001, 3),
                      (7, 512), (1, 3), (3, 100), (100003, 512)]
 RED_THREADS = 512
@@ -284,7 +294,8 @@ def _emulate_plan(plan, m, c):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("m,c", STEP_REDUCTION_SITES + RAGGED_REDUCTIONS)
+@pytest.mark.parametrize("m,c", STEP_REDUCTION_SITES + RAGGED_REDUCTIONS
+                         + PR4_REDUCTION_SITES)
 def test_reduction_plan_covers_every_row_and_channel_once(m, c, dtype):
     vec16 = 16 // dtype.itemsize
     base = 1 << 20                               # a 16-byte aligned address
@@ -337,16 +348,16 @@ def test_reduction_plan_fills_the_card_at_large_sites_and_not_at_small(m, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("m,c", STEP_REDUCTION_SITES + RAGGED_REDUCTIONS
-                         + [(1001, 24)])
+                         + [(1001, 24)] + PR4_SBR_SITES)
 def test_sbr_forward_plan_covers_every_element_once(m, c, dtype, align):
     ptr = ROW_PTRS[align]
     plan = fused._sbr_forward_plan(m, c, dtype, (1 << 20, ptr), sms=132)
     vec16 = 16 // dtype.itemsize
-    # 16-byte accesses at every pr3 site; one element where C or a pointer
-    # forbids them
+    # 16-byte accesses at every pr3 and pr4 site; one element where C or a
+    # pointer forbids them
     want_vec = vec16 if c % vec16 == 0 and align == "aligned" else 1
     assert plan.vec == want_vec
-    if (m, c) in STEP_REDUCTION_SITES and align == "aligned":
+    if (m, c) in STEP_REDUCTION_SITES + PR4_SBR_SITES and align == "aligned":
         assert plan.vec == vec16
     tx, ty = plan.block
     tiles, groups = plan.grid
@@ -371,7 +382,7 @@ def test_sbr_forward_plan_covers_every_element_once(m, c, dtype, align):
 NORMALIZE_CASES = [((128, 128, 128, 3), 3), ((8, 128, 128, 9), 3),
                    ((3, 37, 41, 3), 3), ((2, 64, 64, 3), 3),
                    ((2, 5, 7, 9), 9), ((4, 8, 8, 64), 64), ((1, 1, 1, 5), 5),
-                   ((1, 3, 5, 48), 48)]
+                   ((1, 3, 5, 48), 48), ((256, 224, 224, 3), 3)]
 
 
 @pytest.mark.parametrize("align", ["aligned", "misaligned"])

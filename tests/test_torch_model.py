@@ -245,8 +245,8 @@ def test_state_dict_from_jax_is_strict(pr3, fault):
 @pytest.mark.parametrize("overrides", [
     {"model.rot_rep": "rot6d"},
     {"model.temporal_frames": 3, "model.temporal_mode": "lstm"},
-    {"model.backbone": "resnet50"},
-    {"model.backbone": "cnn_small"},
+    {"model.backbone": "vit", "model.vit_pool": "mean"},
+    {"model.backbone": "vit", "model.vit_pool": "cls"},
 ])
 def test_options_outside_the_slice_raise(overrides):
     _, cfg = _cfgs(**overrides)
