@@ -10,9 +10,10 @@ Phases, one or more lines each, and the last line is the result:
 2. build: the CUDA kernels of csrc/, built with nvcc from the checkout,
    with ptxas' registers and spills of each (no spills allowed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the same inputs, at the shapes of a pr3 step at batch 128 and then at
+   the same inputs, at the shapes of a pr3 step at batch 128, then at
    those of a pr4 step at batch 256 (ResNet-50 at 224x224: 33 BN-ReLU
-   sites, 53 BatchNorms), in f32 and bf16: normalize_u8 and
+   sites, 53 BatchNorms) and at pr5's stem site (3072 frames of one
+   camera), in f32 and bf16: normalize_u8 and
    scale_bias_relu (the serving path), channel_stats and
    scale_bias_relu_backward (the training path). One line per site:
    agreement (normalize_u8 and scale_bias_relu exactly, NaN included), the
@@ -48,7 +49,16 @@ Phases, one or more lines each, and the last line is the result:
    run's model, optimizer and sampler state bit for bit;
 9. evaluate: api.evaluate_on of that checkpoint, with percentiles and
    success rates, on the card against the CPU;
-10. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
+10. pr5 (two cameras, 3 frames each through ResNet-18 at 128x128 and an
+   LSTM, camera dropout 0.15, the quaternion head, bf16, global
+   batch 1024 on one card): the four kernels at its stem site (3072 frames
+   per camera), serving at batch 1 and 8 and at batch 8 with
+   robot0_eye_in_hand left out (a dead camera), f32 against the CPU and
+   bf16; training on both BN routes (one f32 step against the CPU at
+   batch 4 with the same injected camera keep mask, then 16 bf16 steps at
+   batch 1024 with one eval pass); and a resume with camera dropout on,
+   bit for bit with the straight run, dropout masks included;
+11. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
    over every main path), the card's name and power limit, and
    ``{"ok": true, "device": {...}}`` last.
 
@@ -133,6 +143,18 @@ K3_PR4_SITES = K2_PR4_SITES + [
     ((PR4_BATCH, 1024, 14, 14), 7), ((PR4_BATCH, 2048, 7, 7), 4)]
 PR4_CMP_BATCH = 8                # pr4's f32 step and serving against the CPU
 PR2_BATCH = 64
+# pr5: two cameras, each running its T = 3 frames through ResNet-18 at
+# 128x128 one by one (LSTM mode), global batch 1024 on one card: each
+# encoder call takes 3072 frames, so the stem's BN-ReLU site is 3072 * 64 *
+# 64 rows of 64 channels (805 M elements, 3.2 GB in f32) per camera
+PR5_BATCH, PR5_FRAMES = 1024, 3
+PR5_IMAGES = PR5_BATCH * PR5_FRAMES
+K1_PR5_SHAPES = [(PR5_IMAGES, 128, 128, 3)]
+K2_PR5_SITES = [((PR5_IMAGES, 64, 64, 64), 1)]
+PR5_SAMPLES = 4 * PR5_BATCH      # the in-memory dataset's samples
+PR5_EPISODE = 64                 # steps of each of its episodes
+PR5_CMP_BATCH = 4                # pr5's f32 step against the CPU
+PR5_RESUME_BATCH = 64
 TIMED_LAUNCHES = 100
 L2_BYTES = 50 * 2 ** 20
 # Whole-path tolerances. f32: the card and the CPU run the same f32 math
@@ -700,25 +722,40 @@ def phase_sbr_backward(fused, dev, sites_list=K2_SITES, extra=K2_EXTRA,
     return summary
 
 
-def requests(model_cfg, seed, batches):
-    """Observations of each batch size of ``batches``, 1 unbatched."""
+def requests(model_cfg, seed, batches, dead=()):
+    """Observations of each batch size of ``batches`` (1 unbatched), with
+    T frames per camera where the model stacks or sequences them; then,
+    for each (n, camera) of ``dead``, a batch of n with that camera left
+    out, keyed "n without camera"."""
     rs = np.random.RandomState(seed)
     hw = model_cfg.image_size
+    t = model_cfg.temporal_frames
+    frames = (t,) if t > 1 else ()
 
-    def obs(n):
+    def obs(n, cameras=model_cfg.cameras):
         shape = () if n == 1 else (n,)
-        return {"images": {c: rs.randint(0, 256, shape + (hw, hw, 3),
+        return {"images": {c: rs.randint(0, 256, shape + frames + (hw, hw, 3),
                                          np.uint8)
-                           for c in model_cfg.cameras},
-                "proprio": rs.randn(*shape, model_cfg.proprio_dim)
+                           for c in cameras},
+                "proprio": rs.randn(*shape, *frames, model_cfg.proprio_dim)
                 .astype(np.float32)}
 
-    return {n: obs(n) for n in batches}
+    out = {n: obs(n) for n in batches}
+    for n, cam in dead:
+        out[f"{n} without {cam}"] = obs(
+            n, [c for c in model_cfg.cameras if c != cam])
+    return out
+
+
+def request_size(key) -> int:
+    """The batch size of a request key of ``requests``."""
+    return key if isinstance(key, int) else int(key.split()[0])
 
 
 def bn_sites(model):
     """(BN-ReLU sites, which run scale_bias_relu, and all BatchNorms, which
-    run channel_stats on the pallas route) of a model's forward."""
+    run channel_stats on the pallas route) of a model's forward, over all
+    its encoders."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
         BatchNormAct,
     )
@@ -727,38 +764,44 @@ def bn_sites(model):
     return sum(m.act for m in bns), len(bns)
 
 
+def encoder_sites(model) -> int:
+    """BN-ReLU sites of one camera's encoder (every camera's is alike)."""
+    return bn_sites(model)[0] // max(len(model.cameras), 1)
+
+
 def drive(pred, reqs, fused, label):
     """Answer every request once with the counters set to 0 just before;
-    check one normalize_u8 launch and one scale_bias_relu launch per
-    BN-ReLU site per forward chunk. Returns ({batch: (pos, quat)},
-    {kernel: launches})."""
-    sites, _ = bn_sites(pred.model)
+    check one normalize_u8 launch per present camera and one
+    scale_bias_relu launch per BN-ReLU site of its encoder, per forward
+    chunk. Returns ({request: (pos, quat)}, {kernel: launches})."""
+    sites = encoder_sites(pred.model)
     _zero_counts(fused)
     answers = {}
-    chunks = 0
-    for n, obs in reqs.items():
+    want = {"normalize_u8": 0, "scale_bias_relu": 0}
+    for key, obs in reqs.items():
         k1, k2 = fused.normalize_u8.launches, fused.scale_bias_relu.launches
-        answers[n] = pred(obs)
-        chunk = math.ceil(n / pred.max_batch)
-        chunks += chunk
+        answers[key] = pred(obs)
+        chunk = math.ceil(request_size(key) / pred.max_batch)
+        cams = len(obs["images"])
         d1 = fused.normalize_u8.launches - k1
         d2 = fused.scale_bias_relu.launches - k2
-        print(f"serving {label} batch {n}: {chunk} forward(s), launches "
-              f"normalize_u8 {d1}, scale_bias_relu {d2}", flush=True)
-        check(d1 == chunk and d2 == sites * chunk,
-              f"{label} batch {n}: expected {chunk} and {sites * chunk} "
-              f"kernel launches, saw {d1} and {d2}")
+        want["normalize_u8"] += chunk * cams
+        want["scale_bias_relu"] += chunk * cams * sites
+        print(f"serving {label} batch {key}: {chunk} forward(s) of {cams} "
+              f"camera(s), launches normalize_u8 {d1}, scale_bias_relu {d2}",
+              flush=True)
+        check(d1 == chunk * cams and d2 == sites * chunk * cams,
+              f"{label} batch {key}: expected {chunk * cams} and "
+              f"{sites * chunk * cams} kernel launches, saw {d1} and {d2}")
     counts = {"normalize_u8": fused.normalize_u8.launches,
               "scale_bias_relu": fused.scale_bias_relu.launches}
-    check(counts["normalize_u8"] == chunks
-          and counts["scale_bias_relu"] == sites * chunks,
-          f"{label}: launch counts {counts} for {chunks} forwards")
+    check(counts == want, f"{label}: launch counts {counts}, expected {want}")
     return answers, counts
 
 
 def check_shapes(answers, label):
     for n, (pos, quat) in answers.items():
-        lead = () if n == 1 else (n,)
+        lead = () if n == 1 else (request_size(n),)
         check(pos.shape == lead + (3,) and quat.shape == lead + (4,),
               f"{label} batch {n}: shapes {pos.shape} {quat.shape}")
         check(pos.dtype == quat.dtype == np.float32,
@@ -845,11 +888,13 @@ def device_breakdown(run, iters):
 
 
 def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
-                  cpu_batches=(1, 8, BATCH)):
+                  cpu_batches=(1, 8, BATCH), dead=()):
     """The ``name`` preset's Predictor at full width with seed-0 weights,
-    in f32 and bf16, answering requests of ``batches``: launch counts,
-    agreement with the CPU in f32 at ``cpu_batches``, latency and device
-    time by kernel group. Returns the f32 run's launch counts."""
+    in f32 and bf16, answering requests of ``batches`` and, for each (n,
+    camera) of ``dead``, of n with that camera left out: launch counts,
+    agreement with the CPU in f32 at ``cpu_batches`` (request keys), latency
+    and device time by kernel group. Returns the f32 run's launch
+    counts."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
         random_jax_variables,
         state_dict_from_jax,
@@ -857,20 +902,24 @@ def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
 
     cfg = rppt.preset(name)
     m = cfg.model
+    frames = (f", {m.temporal_frames} frames per camera ({m.temporal_mode})"
+              if m.temporal_frames > 1 else "")
+    head_in = m.image_features * len(m.cameras) + m.proprio_features
     print(f"serving {name}: {m.backbone} {m.image_size}x{m.image_size} "
-          f"cameras {list(m.cameras)}, proprio {m.proprio_dim} -> "
+          f"cameras {list(m.cameras)}{frames}, proprio {m.proprio_dim} -> "
           f"{list(m.proprio_hidden)} -> {m.proprio_features}, head "
-          f"{m.image_features + m.proprio_features} -> {list(m.head_hidden)} "
-          f"-> 7", flush=True)
+          f"{head_in} -> {list(m.head_hidden)} -> "
+          f"{9 if m.rot_rep == 'rot6d' else 7}", flush=True)
     t = time.perf_counter()
     state_dict = state_dict_from_jax(random_jax_variables(m, seed=0), m)
     print(f"serving weights from seed 0 via state_dict_from_jax: "
           f"{sum(v.numel() for v in state_dict.values())} values, "
           f"{time.perf_counter() - t:.2f} s", flush=True)
-    reqs = requests(m, seed=1, batches=batches)
+    reqs = requests(m, seed=1, batches=batches, dead=dead)
 
     cpu = rppt.Predictor(cfg.override(**{"model.dtype": "float32"}),
-                         state_dict=state_dict, max_batch=max(cpu_batches),
+                         state_dict=state_dict,
+                         max_batch=max(map(request_size, cpu_batches)),
                          device="cpu")
     t = time.perf_counter()
     want = {n: cpu(reqs[n]) for n in cpu_batches}
@@ -882,7 +931,7 @@ def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
     for dtype in ("float32", "bfloat16"):
         c = cfg.override(**{"model.dtype": dtype})
         pred = rppt.Predictor(c, state_dict=state_dict,
-                              max_batch=max(batches))
+                              max_batch=max(map(request_size, reqs)))
         pred.warmup()
         label = f"{name} {dtype}"
         answers, counts = drive(pred, reqs, fused, label)
@@ -925,21 +974,28 @@ def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
 
 
 class MemoryDemos:
-    """An in-memory pr3 dataset made from a seed with numpy: uint8 frames,
-    proprio vectors and target poses, served by ``get_batch`` as the
-    HDF5 store serves them (data/hdf5_store.HDF5DemoStore.get_batch: the
-    same keys, dtypes and shapes, and host augmentation with the same
-    per-sample parameter stream, through the port's data/augment.py and
-    native engine). The card's host has no h5py, so the trainer reads
-    this instead of a demo file."""
+    """An in-memory dataset made from a seed with numpy: uint8 frames of
+    each camera, proprio vectors and target poses, served by ``get_batch``
+    as the HDF5 store serves them (data/hdf5_store.HDF5DemoStore.get_batch:
+    the same keys, dtypes and shapes; with T = model.temporal_frames > 1
+    each sample is the window of its last T steps, clamped at its
+    episode's start (episodes of ``episode`` steps), as (n, T, H, W, 3)
+    frames and (n, T, D) proprio; host augmentation with the store's
+    per-(sample, camera) parameter stream, one draw shared by the T frames
+    of a sample, through the port's data/augment.py and native engine).
+    The card's host has no h5py, so the trainer reads this instead of a
+    demo file."""
 
-    def __init__(self, cfg, size: int, seed: int):
+    def __init__(self, cfg, size: int, seed: int, episode: int = 0):
         m, d = cfg.model, cfg.data
         rs = np.random.RandomState(seed)
         hw = m.image_size
-        self.camera = m.cameras[0]
+        self.cameras = tuple(m.cameras)
         self.hw = hw
-        self.frames = rs.randint(0, 256, (size, hw, hw, 3), np.uint8)
+        self.t = m.temporal_frames
+        self.episode = episode or size
+        self.frames = {c: rs.randint(0, 256, (size, hw, hw, 3), np.uint8)
+                       for c in self.cameras}
         self.proprio = rs.randn(size, m.proprio_dim).astype(np.float32)
         self.pos = rs.uniform(-0.3, 0.3, (size, 3)).astype(np.float32)
         q = rs.randn(size, 4)
@@ -954,39 +1010,52 @@ class MemoryDemos:
             jitter_prob=d.jitter_prob)
 
     def __len__(self) -> int:
-        return len(self.frames)
+        return len(self.pos)
 
     def proprio_stats(self):
         return (self.proprio.mean(0, dtype=np.float64).astype(np.float32),
                 np.maximum(self.proprio.std(0, dtype=np.float64), 1e-6)
                 .astype(np.float32))
 
-    def get_batch(self, indices, augment: bool = False, seed: int = 0):
+    def _camera_batch(self, cam, ci, indices, flat, augment, seed):
         from rgb_proprioceptive_pose_estimator_tpu_torch.data import (
             augment as aug,
         )
         from rgb_proprioceptive_pose_estimator_tpu_torch.runtime import native
 
-        indices = np.asarray(indices, dtype=np.int64)
-        n, hw = len(indices), self.hw
-        frames = self.frames[indices]
+        n, t, hw = len(indices), self.t, self.hw
+        frames = self.frames[cam][flat]                 # (n * T, hw, hw, 3)
         if augment:
-            sseeds = (seed * 1_000_003 + indices * 31) % (2 ** 31 - 1)
+            sseeds = (seed * 1_000_003 + indices * 31
+                      + ci * 7_777) % (2 ** 31 - 1)
             pb = aug.sample_aug_params_batch(
                 np.full(n, hw), np.full(n, hw), sseeds, **self.aug_kwargs)
             if self.use_native and native.available():
-                crops = np.stack([pb["y0"], pb["x0"], pb["ch"], pb["cw"]], 1)
-                jit = np.stack([pb["brightness"], pb["contrast"],
-                                pb["saturation"], pb["hue"]],
-                               1).astype(np.float32)
+                crops = np.repeat(np.stack(
+                    [pb["y0"], pb["x0"], pb["ch"], pb["cw"]], 1), t, axis=0)
+                jit = np.repeat(np.stack(
+                    [pb["brightness"], pb["contrast"], pb["saturation"],
+                     pb["hue"]], 1).astype(np.float32), t, axis=0)
                 frames = native.augment_batch(
-                    frames, hw, crops, pb["flip"].astype(np.uint8), jit)
+                    frames, hw, crops,
+                    np.repeat(pb["flip"].astype(np.uint8), t), jit)
             else:
                 frames = np.stack([
-                    aug.apply_aug_params(f, aug.params_row(pb, i), hw)
+                    aug.apply_aug_params(f, aug.params_row(pb, i // t), hw)
                     for i, f in enumerate(frames)])
-        return {"images": {self.camera: frames},
-                "proprio": self.proprio[indices],
+        return frames if t == 1 else frames.reshape(n, t, hw, hw, 3)
+
+    def get_batch(self, indices, augment: bool = False, seed: int = 0):
+        indices = np.asarray(indices, dtype=np.int64)
+        start = indices // self.episode * self.episode
+        win = np.maximum(indices[:, None] + np.arange(1 - self.t, 1),
+                         start[:, None])                # (n, T)
+        flat = win.reshape(-1)
+        return {"images": {c: self._camera_batch(c, ci, indices, flat,
+                                                 augment, seed)
+                           for ci, c in enumerate(self.cameras)},
+                "proprio": (self.proprio[indices] if self.t == 1
+                            else self.proprio[win]),
                 "target_pos": self.pos[indices].copy(),
                 "target_quat": self.quat[indices].copy()}
 
@@ -1125,6 +1194,14 @@ def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
     sd = state_dict_from_jax(random_jax_variables(cfg.model, seed=0),
                              cfg.model)
     batch = dataset.get_batch(np.arange(n), augment=True, seed=5)
+    if cfg.model.camera_dropout > 0:
+        # the same keep mask on both sides (the card's and the CPU's
+        # generators draw other numbers): odd sample i drops camera
+        # (i // 2) mod cameras
+        keep = np.ones((n, len(cfg.model.cameras)), np.float32)
+        odd = np.arange(1, n, 2)
+        keep[odd, odd // 2 % keep.shape[1]] = 0.0
+        batch["camera_keep"] = keep
 
     def step(d, tape_mode=None):
         state = create_state(cfg, torch.device(d), sd)
@@ -1159,8 +1236,10 @@ def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
                      / (CMP_STATS_ATOL + CMP_STATS_RTOL * bc[k].abs())
                      ).max().item() for k in bc}
     worst_s = max(stats_err, key=stats_err.get)
+    dropped = ("" if "camera_keep" not in batch else
+               f"; camera keep mask {batch['camera_keep'].tolist()}")
     print(f"train {label} one step card vs CPU (batch {n}, f32, TF32 "
-          f"off): loss {lg:.6f} vs {lc:.6f} rel {loss_rel:.3g} (rtol "
+          f"off{dropped}): loss {lg:.6f} vs {lc:.6f} rel {loss_rel:.3g} (rtol "
           f"{CMP_LOSS_RTOL}); ReLU inputs of another sign on the CPU "
           f"{tape.flips} of {tape.n}; with the card's ReLU decisions worst "
           f"gradient {worst_g} {grad_rel[worst_g]:.3g} of its max (limit "
@@ -1240,12 +1319,15 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
         loop.train_step, loop.eval_step = train_step, eval_step
     peak = torch.cuda.max_memory_allocated(dev)
 
-    want_step = {"normalize_u8": 1, "scale_bias_relu": act_sites,
+    # one normalize_u8 per camera: every camera's encoder runs in training
+    # (camera dropout zeroes features, it skips no encoder)
+    cams = len(state.model.cameras)
+    want_step = {"normalize_u8": cams, "scale_bias_relu": act_sites,
                  "scale_bias_relu_backward": act_sites, "channel_stats": 0}
     if cfg.model.bn_stats == "pallas":
         want_step.update(scale_bias_relu=0, scale_bias_relu_backward=0,
                          channel_stats=bn_count)
-    want_eval = {"normalize_u8": 1, "scale_bias_relu": act_sites,
+    want_eval = {"normalize_u8": cams, "scale_bias_relu": act_sites,
                  "scale_bias_relu_backward": 0, "channel_stats": 0}
     n_steps = tcfg.steps if expect_steps is None else expect_steps
     n_evals = EVAL_BATCHES if tcfg.eval_every else 0
@@ -1280,9 +1362,13 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     # plans and the first batches land in the first)
     p50, p90 = (float(v) for v in
                 np.percentile(times[STEPS_PER_CALL:], [50, 90]))
+    m = cfg.model
+    frames = len(state.model.cameras) * m.temporal_frames
+    rate = (f"{batch / p50 * 1e3:.1f} images/s" if frames <= 1 else
+            f"{batch / p50 * 1e3:.1f} samples/s ({frames} frames each, "
+            f"{frames * batch / p50 * 1e3:.1f} frames/s)")
     print(f"train {label} batch {batch}: synchronized step p50 {p50:.3f} ms "
-          f"p90 {p90:.3f} ms, {batch / p50 * 1e3:.1f} images/s at p50 "
-          f"({smi})", flush=True)
+          f"p90 {p90:.3f} ms, {rate} at p50 ({smi})", flush=True)
     pipe = HostPipeline(dataset, cfg.data, device=dev, train=True)
     try:
         prof = device_breakdown(
@@ -1384,6 +1470,58 @@ def phase_training_pr2(rppt, fused, dev, smi, ckpt_root):
     return {"train pr2": counts}
 
 
+def pr5_config(rppt):
+    """pr5 as the preset has it, on one card (the preset's
+    dist.num_devices=8 is data parallelism, which the port refuses), with
+    one host augmentation thread per core of the card's host (the preset's
+    32 would build up to 64 batches of 302 MB ahead of a 16-step run)."""
+    return rppt.preset("pr5").override(**{"dist.num_devices": 1,
+                                          "data.num_workers": 8})
+
+
+def phase_training_pr5(rppt, fused, dev, smi, ckpt_root):
+    """pr5 (two cameras, 3 frames through ResNet-18 at 128x128 and an LSTM
+    each, camera dropout 0.15, bf16, global batch 1024) on both BN routes:
+    one f32 step against the CPU at batch PR5_CMP_BATCH with an injected
+    camera keep mask, then 16 steps with an eval pass. Returns ({path:
+    launch counts}, the in-memory dataset)."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
+        PoseEstimator,
+    )
+
+    cfg = pr5_config(rppt)
+    m, t = cfg.model, cfg.train
+    dataset = MemoryDemos(cfg, PR5_SAMPLES, seed=9, episode=PR5_EPISODE)
+    print(f"training pr5: {m.backbone} {m.image_size}x{m.image_size} "
+          f"{m.dtype}, cameras {list(m.cameras)}, {m.temporal_frames} frames "
+          f"({m.temporal_mode}), camera dropout {m.camera_dropout}, batch "
+          f"{cfg.data.batch_size} on {cfg.dist.num_devices} card, "
+          f"{t.optimizer} lr {t.lr} {t.lr_schedule} schedule with "
+          f"{t.warmup_steps} warmup steps, remat {m.remat}, in-memory "
+          f"dataset of {len(dataset)} samples (episodes of {PR5_EPISODE} "
+          f"steps) from seed 9, host augmentation on "
+          f"({cfg.data.num_workers} workers)", flush=True)
+    with torch.device("meta"):
+        sites = bn_sites(PoseEstimator(m))
+    check(sites == (2 * sum(n for _, n in K2_SITES),
+                    2 * sum(n for _, n in K3_SITES)),
+          f"pr5 has {sites} BN-ReLU sites and BatchNorms; expected two "
+          "ResNet-18s")
+    launches = {}
+    for route in ("reduce", "pallas"):
+        c = cfg.override(**{"model.bn_stats": route})
+        compare_step_with_cpu(fused, c, f"pr5 {route}", dataset, dev,
+                              n=PR5_CMP_BATCH)
+        torch.cuda.empty_cache()
+        counts, out, _ = run_training(
+            fused, train_cfg(c, f"{ckpt_root}/pr5_{route}"),
+            f"pr5 {route} {m.dtype}", dataset, dev, smi)
+        launches[f"train pr5 {route}"] = counts
+        del out
+        torch.cuda.empty_cache()
+    return launches, dataset
+
+
 def _checkpoint_differences(path_a, path_b):
     """{part: elements that differ} between two training checkpoints'
     model and optimizer tensors, bit for bit."""
@@ -1401,34 +1539,59 @@ def _checkpoint_differences(path_a, path_b):
         "sampler": int(tr_a["pipeline"] != tr_b["pipeline"])}
 
 
-def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset):
-    """pr3 f32 on the reduce route, with deterministic cuDNN (whose
-    backward otherwise sums in another order from run to run, and Adam's
-    first steps move every weight by about the learning rate whatever the
-    size of its gradient): 16 straight steps; then 8 steps to a
-    checkpoint, and resume="auto" to 16 in the same directory. The resumed
-    run starts at the saved step with the saved optimizer count and
-    sampler state, runs the 8 steps left, and ends with the straight run's
-    model, optimizer and sampler state bit for bit. Returns the launch
+def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
+                 base=None):
+    """``base`` (default the ``name`` preset) on its route and dtype, with
+    deterministic cuDNN (whose backward otherwise sums in another order
+    from run to run, and Adam's first steps move every weight by about the
+    learning rate whatever the size of its gradient): 16 straight steps;
+    then 8 steps to a checkpoint, and resume="auto" to 16 in the same
+    directory. The resumed run starts at the saved step with the saved
+    optimizer count and sampler state, runs the 8 steps left, and ends
+    with the straight run's model, optimizer and sampler state bit for
+    bit; with camera dropout, every run's keep masks are recorded, and the
+    cut and resumed runs must draw the straight run's. Returns the launch
     counts of the three runs and the resumed run's final checkpoint."""
+    import contextlib
+
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
         create_state,
     )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models import fusion
     from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
 
-    ckpt_dir = f"{ckpt_root}/pr3_resume"
-    cfg = train_cfg(rppt.preset("pr3"), ckpt_dir)
-    straight_cfg = train_cfg(rppt.preset("pr3"), f"{ckpt_root}/pr3_straight")
+    base = rppt.preset(name) if base is None else base
+    ckpt_dir = f"{ckpt_root}/{name}_resume"
+    cfg = train_cfg(base, ckpt_dir)
+    straight_cfg = train_cfg(base, f"{ckpt_root}/{name}_straight")
     first = cfg.override(**{"train.steps": STEPS_PER_CALL})
+    masks = {"straight": [], "first": [], "resumed": []}
+    draw = fusion.draw_camera_keep
+
+    @contextlib.contextmanager
+    def recording(run):
+        def record(*args, **kwargs):
+            keep = draw(*args, **kwargs)
+            masks[run].append(keep.cpu())
+            return keep
+
+        fusion.draw_camera_keep = record
+        try:
+            yield
+        finally:
+            fusion.draw_camera_keep = draw
+
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        counts_s, straight, _ = run_training(
-            fused, straight_cfg, "pr3 resume: 16 straight steps", dataset,
-            dev, smi)
-        counts_a, _, _ = run_training(fused, first,
-                                      "pr3 resume: first 8 steps", dataset,
-                                      dev, smi)
+        with recording("straight"):
+            counts_s, straight, _ = run_training(
+                fused, straight_cfg, f"{name} resume: 16 straight steps",
+                dataset, dev, smi)
+        with recording("first"):
+            counts_a, _, _ = run_training(
+                fused, first, f"{name} resume: first 8 steps", dataset, dev,
+                smi)
         _, _, training = checkpoint.load_training(
             checkpoint.step_path(ckpt_dir, STEPS_PER_CALL))
         check(training["step"] == STEPS_PER_CALL
@@ -1437,10 +1600,11 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset):
               f"checkpoint at step {STEPS_PER_CALL}: {training['step']}, "
               f"count {training['optimizer']['count']}, "
               f"{training['pipeline']['consumed']} batches consumed")
-        counts_b, out, times = run_training(
-            fused, cfg, "pr3 resume: resumed to 16", dataset, dev, smi,
-            state=create_state(cfg, dev),
-            expect_steps=TRAIN_STEPS - STEPS_PER_CALL)
+        with recording("resumed"):
+            counts_b, out, times = run_training(
+                fused, cfg, f"{name} resume: resumed to 16", dataset, dev,
+                smi, state=create_state(cfg, dev),
+                expect_steps=TRAIN_STEPS - STEPS_PER_CALL)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     st = out["state"]
@@ -1452,13 +1616,32 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset):
           f"{st.optimizer.count}, {final['pipeline']['consumed']} batches")
     differ = _checkpoint_differences(out["ckpt_path"], straight["ckpt_path"])
     loss, want = out["metrics"]["loss"], straight["metrics"]["loss"]
-    print(f"resume pr3 (deterministic cuDNN): checkpoint at step "
+    dropout = cfg.model.camera_dropout > 0
+    mask_text = ""
+    if dropout:
+        # the straight run's profile (run_training) steps on after its
+        # TRAIN_STEPS and draws more
+        straight_masks = masks["straight"][:TRAIN_STEPS]
+        same = [torch.equal(a, b) for a, b in zip(
+            masks["first"] + masks["resumed"], straight_masks)]
+        dropped = int(sum(int((m == 0).sum()) for m in straight_masks))
+        total = sum(m.numel() for m in straight_masks)
+        mask_text = (f"; camera keep masks drawn {len(straight_masks)} in "
+                     f"the straight run's steps, {len(masks['first'])} + "
+                     f"{len(masks['resumed'])} cut and resumed, equal to the "
+                     f"straight run's in {sum(same)} of {len(same)} steps, "
+                     f"{dropped} of {total} camera entries dropped")
+        check(len(straight_masks) == TRAIN_STEPS and len(same) ==
+              TRAIN_STEPS and all(same) and dropped > 0,
+              f"{name} resume: the camera keep masks differ from the "
+              "straight run's, or none dropped")
+    print(f"resume {name} (deterministic cuDNN): checkpoint at step "
           f"{STEPS_PER_CALL} (optimizer count {STEPS_PER_CALL}, sampler at "
           f"batch {STEPS_PER_CALL}); resumed {len(times)} steps from it to "
           f"step {st.step} (count {st.optimizer.count}, sampler at batch "
           f"{final['pipeline']['consumed']}); loss at step {TRAIN_STEPS} "
           f"{loss!r} against {want!r} straight; elements that differ from "
-          f"the straight run's final state {differ}", flush=True)
+          f"the straight run's final state {differ}{mask_text}", flush=True)
     check(loss == want and not any(differ.values()),
           "the resumed run's final state differs from the straight run's")
     launches = {k: counts_s[k] + counts_a[k] + counts_b[k] for k in counts_a}
@@ -1563,6 +1746,16 @@ def main() -> int:
     phase_channel_stats(fused, dev, K3_PR4_SITES, [], "pr4")
     phase_sbr_backward(fused, dev, K2_PR4_SITES, [], "pr4", nonfinite=False)
     torch.cuda.empty_cache()
+    # pr5's stem site, four times pr4's largest
+    phase_normalize_u8(fused, dev, K1_PR5_SHAPES)
+    phase_sbr_forward(fused, dev, K2_PR5_SITES, [], "pr5 stem",
+                      nonfinite=False)
+    torch.cuda.empty_cache()
+    phase_channel_stats(fused, dev, K2_PR5_SITES, [], "pr5 stem")
+    torch.cuda.empty_cache()
+    phase_sbr_backward(fused, dev, K2_PR5_SITES, [], "pr5 stem",
+                       nonfinite=False)
+    torch.cuda.empty_cache()
     # each main path is driven with the counts set to 0 just before it and
     # read just after; a kernel's launches are the sum over the paths
     with tempfile.TemporaryDirectory() as ckpt_root:
@@ -1578,6 +1771,19 @@ def main() -> int:
         paths["resume pr3"], ckpt_path = phase_resume(
             rppt, fused, dev, smi, ckpt_root, pr3_data)
         paths["evaluate pr3"] = phase_evaluate(rppt, fused, dev, ckpt_path)
+        torch.cuda.empty_cache()
+        dead = "robot0_eye_in_hand"
+        paths["serving pr5"] = phase_serving(
+            rppt, fused, smi, "pr5", (1, 8), (8, f"8 without {dead}"),
+            dead=((8, dead),))
+        torch.cuda.empty_cache()
+        trained, pr5_data = phase_training_pr5(rppt, fused, dev, smi,
+                                               ckpt_root)
+        paths.update(trained)
+        paths["resume pr5"], _ = phase_resume(
+            rppt, fused, dev, smi, ckpt_root, pr5_data, "pr5",
+            pr5_config(rppt).override(
+                **{"data.batch_size": PR5_RESUME_BATCH}))
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

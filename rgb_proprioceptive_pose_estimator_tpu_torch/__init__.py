@@ -10,7 +10,7 @@ every Pallas kernel replaced by a hand-written CUDA kernel for Hopper
     cfg = rppt.preset("pr3").override(**{"data.path": "lift.hdf5"})
     out = rppt.train(cfg)                               # runs on cuda
     report = rppt.evaluate(cfg, percentiles=True)       # latest checkpoint
-    pred = rppt.Predictor(cfg, ckpt_path=out["ckpt_path"])
+    pred = rppt.Predictor(cfg, out["ckpt_dir"])         # latest checkpoint
     pos, quat = pred({"images": {"agentview": img}, "proprio": state})
 
 The CLI: ``python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli``.

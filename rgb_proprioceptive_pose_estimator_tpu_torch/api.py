@@ -28,17 +28,19 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return dev
 
 
-def train(cfg: Config, device: Union[str, torch.device, None] = None
+def train(cfg: Config, *, device: Union[str, torch.device, None] = None
           ) -> Dict[str, Any]:
     """Train per config (engine/loop.fit) on ``device`` (CUDA by default).
-    Returns {"model", "metrics", "ckpt_path"}: the trained model, the last
-    logged train metrics with the last eval's under ``eval_*``, and the
-    final checkpoint file, which ``Predictor(cfg, ckpt_path=...)`` serves."""
+    Returns {"state", "model", "metrics", "ckpt_dir", "ckpt_path"}: the
+    final training state and model, the last logged train metrics with the
+    last eval's under ``eval_*``, train.ckpt_dir, which
+    ``Predictor(cfg, ckpt_dir)`` and ``evaluate(cfg, ckpt_dir)`` restore
+    from, and the final checkpoint file."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import fit
 
     out = fit(cfg, resolve_device(device))
-    return {"model": out["model"], "metrics": out["metrics"],
-            "ckpt_path": out["ckpt_path"]}
+    return {k: out[k] for k in ("state", "model", "metrics", "ckpt_dir",
+                                "ckpt_path")}
 
 
 def load_model(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
@@ -94,7 +96,7 @@ def evaluate(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
              percentiles: bool = False,
              success_at: Sequence[Tuple[float, float]] = (),
              dump_predictions: str = "", drop_cameras: Sequence[str] = (),
-             device: Union[str, torch.device, None] = None
+             *, device: Union[str, torch.device, None] = None
              ) -> Dict[str, Any]:
     """Restore a checkpoint (``load_model``) and report its eval metrics
     (loss components, pos MAE cm, rot MAE deg, ``step``) over the eval
@@ -267,11 +269,13 @@ class Predictor:
     input (squeezed for unbatched input). Batches run in chunks of at most
     ``max_batch`` samples.
 
-    Weights come from ``state_dict`` (e.g. ``utils.convert.
-    state_dict_from_jax``), a checkpoint file (``ckpt_path``), a model
-    already built (``model``, on its device), or else the checkpoint that
-    ``step`` names in ``ckpt_dir`` (``load_model``: default the latest in
-    train.ckpt_dir).
+    Weights come from the checkpoint that ``step`` names in ``ckpt_dir``
+    (``load_model``: default the latest in train.ckpt_dir), as in the JAX
+    package, unless one of these is given instead: ``model`` (a model
+    already built, on its device), ``state`` (a training state,
+    engine/state.TrainState, whose model is served), ``state_dict`` (e.g.
+    ``utils.convert.state_dict_from_jax``) or ``ckpt_path`` (one
+    checkpoint file). ``device`` places what is loaded (CUDA by default).
 
     A configured camera may be omitted from obs (sensor died) when the
     model trained with model.camera_dropout > 0 or with
@@ -280,20 +284,26 @@ class Predictor:
     camera raises KeyError.
     """
 
-    def __init__(self, cfg: Config, ckpt_path: Optional[str] = None,
+    def __init__(self, cfg: Config, ckpt_dir: Optional[str] = None,
+                 step: Step = None, max_batch: int = 8, state=None,
+                 model: Optional[PoseEstimator] = None,
+                 allow_missing_cameras: bool = False, *,
+                 ckpt_path: Optional[str] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 max_batch: int = 8,
-                 device: Union[str, torch.device, None] = None,
-                 allow_missing_cameras: bool = False,
-                 ckpt_dir: Optional[str] = None, step: Step = None,
-                 model: Optional[PoseEstimator] = None):
+                 device: Union[str, torch.device, None] = None):
+        if state is not None:
+            if model is not None and model is not state.model:
+                raise ValueError("state and model name different models")
+            model = state.model
         given = [k for k, v in (("ckpt_path", ckpt_path),
-                                ("state_dict", state_dict), ("model", model))
+                                ("state_dict", state_dict),
+                                ("model or state", model))
                  if v is not None]
         if len(given) > 1 or (given and (ckpt_dir is not None
                                          or step is not None)):
             raise ValueError("pass at most one of ckpt_path, state_dict and "
-                             "model, and ckpt_dir/step only without them")
+                             "model (or state), and ckpt_dir/step only "
+                             "without them")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.cfg = cfg
@@ -390,10 +400,10 @@ class Predictor:
         return pos, quat
 
 
-def predict(cfg: Config, obs: Dict[str, Any], ckpt_path: Optional[str] = None,
-            device: Union[str, torch.device, None] = None,
-            ckpt_dir: Optional[str] = None, step: Step = None
+def predict(cfg: Config, obs: Dict[str, Any], ckpt_dir: Optional[str] = None,
+            step: Step = None, *, ckpt_path: Optional[str] = None,
+            device: Union[str, torch.device, None] = None
             ) -> Tuple[np.ndarray, np.ndarray]:
     """One-shot convenience wrapper; use ``Predictor`` for repeated calls."""
-    return Predictor(cfg, ckpt_path=ckpt_path, device=device,
-                     ckpt_dir=ckpt_dir, step=step)(obs)
+    return Predictor(cfg, ckpt_dir, step, ckpt_path=ckpt_path,
+                     device=device)(obs)

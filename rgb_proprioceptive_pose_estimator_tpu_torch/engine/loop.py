@@ -13,7 +13,7 @@ checks), log, eval and checkpoint cadences, the best-eval checkpoint
 Not in the port yet, and refused rather than ignored
 (``check_fit_supported``): warm starts, early stopping, EMA and the other
 training extras (ROADMAP.md queue A, item 9); more than one device
-(item 8).
+(item 8f).
 """
 
 from __future__ import annotations
@@ -69,8 +69,8 @@ def check_fit_supported(cfg: Config) -> None:
     if cfg.dist.num_devices > 1:
         raise NotImplementedError(
             f"dist.num_devices={cfg.dist.num_devices}: the port trains on "
-            "one device (data parallelism comes with ROADMAP.md queue A, "
-            "item 8)")
+            "one device (data parallelism with global-batch BatchNorm comes "
+            "with ROADMAP.md queue A, item 8f); set dist.num_devices=1")
     later = {
         "train.init_from": (bool(t.init_from), 9),
         "train.init_from_torch": (bool(t.init_from_torch), 9),

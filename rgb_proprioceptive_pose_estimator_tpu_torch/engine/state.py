@@ -22,6 +22,10 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
     BatchNormAct,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import PoseEstimator
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.lstm import (
+    LSTM,
+    RECURRENT_KERNELS,
+)
 
 # flax's lecun_normal draws from a normal truncated at 2 std and rescales
 # by this constant so that the variance stays 1/fan_in
@@ -38,8 +42,9 @@ class TrainState:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator``:
-    He-normal (fan out) convolutions, LeCun truncated-normal dense kernels,
-    zero biases, BatchNorm scale 1 and shift 0, and identity running and
+    He-normal (fan out) convolutions, LeCun truncated-normal dense kernels
+    (the LSTM's input kernels too), orthogonal LSTM recurrent kernels, zero
+    biases, BatchNorm scale 1 and shift 0, and identity running and
     proprio statistics. (The draws differ from JAX's: tests hand both
     packages the same weights instead.)"""
     with torch.no_grad():
@@ -52,12 +57,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
                 nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
-                nn.init.zeros_(mod.bias)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
             elif isinstance(mod, BatchNormAct):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+        # after the pass above, which visits the LSTM's dense layers too
+        for mod in model.modules():
+            if isinstance(mod, LSTM):
+                for name in RECURRENT_KERNELS:
+                    nn.init.orthogonal_(getattr(mod, name).weight,
+                                        generator=generator)
 
 
 def create_state(cfg: Config, device: torch.device,

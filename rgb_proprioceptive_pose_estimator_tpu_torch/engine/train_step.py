@@ -9,13 +9,19 @@ PyTorch runs eagerly, so there is no compiled program; the optimizer's
 arithmetic is ``torch.optim``'s, which equals optax's algebraically and
 rounds differently (AdamW decays before it steps, optax adds the decay to
 the update), so the two agree by trajectory, not bit for bit.
+
+The model's randomness in training (camera dropout) comes from a
+``torch.Generator`` made anew for each step from ``(train.seed, step)``,
+as the JAX package folds the step into its dropout key: a resumed run
+draws the same masks as a straight one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import TrainConfig
@@ -132,8 +138,19 @@ class Optimizer:
         self.count = int(state["count"])
 
 
-def _loss(model, batch, cfg: TrainConfig):
-    pos, quat = model(batch)
+def dropout_generator(seed: int, step: int,
+                      device: torch.device) -> torch.Generator:
+    """The model's random stream of train step ``step`` of a run seeded
+    ``seed``, on ``device``: the counterpart of the JAX package's
+    ``fold_in(fold_in(rng, 1), step)``, a function of (seed, step) only
+    (its numbers differ from JAX's)."""
+    mixed = np.random.SeedSequence([seed, 1, step]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def _loss(model, batch, cfg: TrainConfig, generator=None):
+    pos, quat = model(batch, generator=generator)
     loss, aux = pose_loss(pos, quat, batch["target_pos"],
                           batch["target_quat"], pos_weight=cfg.pos_weight,
                           rot_weight=cfg.rot_weight, rot_loss=cfg.rot_loss,
@@ -142,14 +159,17 @@ def _loss(model, batch, cfg: TrainConfig):
 
 
 def forward_backward(model: torch.nn.Module, batch: Dict,
-                     cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+                     cfg: TrainConfig,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Train-mode forward, loss and backward: the gradients land in the
     parameters' ``.grad`` (cleared first), the BatchNorm running statistics
-    are updated. Returns the loss components, detached."""
+    are updated. ``generator`` draws the model's dropout masks. Returns the
+    loss components, detached."""
     model.train()
     for p in model.parameters():
         p.grad = None
-    _, _, loss, aux = _loss(model, batch, cfg)
+    _, _, loss, aux = _loss(model, batch, cfg, generator)
     loss.backward()
     return {k: v.detach() for k, v in aux.items()}
 
@@ -158,7 +178,12 @@ def train_step(state, batch: Dict, cfg: TrainConfig
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step of ``state`` (engine/state.TrainState) on
     ``batch``; returns the step's metrics as device tensors."""
-    metrics = forward_backward(state.model, batch, cfg)
+    model = state.model
+    generator = None
+    if model.cfg.camera_dropout > 0:
+        generator = dropout_generator(cfg.seed, state.step,
+                                      next(model.parameters()).device)
+    metrics = forward_backward(model, batch, cfg, generator)
     if cfg.log_grad_norm:
         metrics["grad_norm"] = global_norm(
             p.grad for p in state.optimizer.params if p.grad is not None)

@@ -1,7 +1,8 @@
 """Quaternion math of the serving and training paths (counterpart of the
-JAX package's ``ops/pose_math.py``): normalization and the distances the
-losses and metrics use. The rest of that module (rot6d, products,
-mirroring) comes in a later slice.
+JAX package's ``ops/pose_math.py``): normalization, the distances the
+losses and metrics use, and the rotation matrix and continuous 6D forms
+of the rot6d head. The rest of that module (products, mirroring) comes in
+a later slice.
 
 Every distance depends only on <q, q'>, so it is invariant to the storage
 convention and to the antipodal sign q ~ -q.
@@ -10,6 +11,7 @@ convention and to the antipodal sign q ~ -q.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 # Keep a margin from |dot| == 1 so arccos' gradient (which blows up like
 # 1/sqrt(1-x^2)) stays finite.
@@ -28,6 +30,84 @@ def _soft_normalize(v: torch.Tensor, eps: float) -> torch.Tensor:
 def quat_normalize(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Normalize to a unit quaternion (soft norm, see _soft_normalize)."""
     return _soft_normalize(q, eps)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w,x,y,z) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = torch.unbind(q, dim=-1)
+    r = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (w,x,y,z).
+
+    The branchless four-candidate form: t_i in {4w^2, 4x^2, 4y^2, 4z^2}
+    sum to 4, so the largest is >= 1, and the candidate built from it keeps
+    every square root and division well conditioned. The three candidates
+    not selected are computed with their t replaced by 1 (the double
+    where), so that no lane divides by about 0 and no NaN reaches the
+    gradient through a branch that is not taken."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    t = torch.stack([1.0 + m00 + m11 + m22,    # 4w^2
+                     1.0 + m00 - m11 - m22,    # 4x^2
+                     1.0 - m00 + m11 - m22,    # 4y^2
+                     1.0 - m00 - m11 + m22],   # 4z^2
+                    dim=-1)
+    sel = torch.argmax(t, dim=-1)
+    one, tiny = t.new_tensor(1.0), t.new_tensor(1e-12)
+
+    def safe(i):
+        ti = torch.where(sel == i, t[..., i], one)
+        s = torch.sqrt(torch.maximum(ti, tiny))      # = 2 |component i|
+        return s, 0.5 / s
+
+    s0, i0 = safe(0)
+    cand0 = torch.stack([0.5 * s0, (m21 - m12) * i0,
+                         (m02 - m20) * i0, (m10 - m01) * i0], dim=-1)
+    s1, i1 = safe(1)
+    cand1 = torch.stack([(m21 - m12) * i1, 0.5 * s1,
+                         (m01 + m10) * i1, (m02 + m20) * i1], dim=-1)
+    s2, i2 = safe(2)
+    cand2 = torch.stack([(m02 - m20) * i2, (m01 + m10) * i2,
+                         0.5 * s2, (m12 + m21) * i2], dim=-1)
+    s3, i3 = safe(3)
+    cand3 = torch.stack([(m10 - m01) * i3, (m02 + m20) * i3,
+                         (m12 + m21) * i3, 0.5 * s3], dim=-1)
+    cands = torch.stack([cand0, cand1, cand2, cand3], dim=-2)  # (..., 4, 4)
+    onehot = F.one_hot(sel, 4).to(m.dtype)[..., None]
+    return quat_normalize(torch.sum(cands * onehot, dim=-2))
+
+
+def rot6d_to_matrix(x: torch.Tensor) -> torch.Tensor:
+    """Continuous 6D rotation representation (Zhou et al., CVPR 2019) ->
+    rotation matrix: ``x`` (..., 6) holds the first two columns, which
+    Gram-Schmidt orthonormalizes; the third is their cross product. Both
+    normalizations are soft (_soft_normalize), so the gradient is finite at
+    a head output of exactly 0."""
+    a1, a2 = x[..., :3], x[..., 3:6]
+    b1 = _soft_normalize(a1, 1e-8)
+    a2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = _soft_normalize(a2, 1e-8)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)     # columns
+
+
+def matrix_to_rot6d(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> its 6D encoding (the first two columns)."""
+    return torch.cat([m[..., :, 0], m[..., :, 1]], dim=-1)
+
+
+def rot6d_to_quat(x: torch.Tensor) -> torch.Tensor:
+    """6D representation -> unit quaternion (w,x,y,z): the head path of
+    model.rot_rep="rot6d"."""
+    return matrix_to_quat(rot6d_to_matrix(x))
 
 
 def quat_abs_dot(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

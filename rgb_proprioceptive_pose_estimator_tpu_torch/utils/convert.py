@@ -11,6 +11,11 @@ numpy arrays, keyed by flax module names, which the port's modules share:
     batch_stats/.../bn/mean, var              -> .../bn.running_mean, running_var
     batch_stats/proprio/proprio_mean, _std    -> proprio.proprio_mean, _std
 
+The LSTM of model.temporal_mode="lstm" keeps flax OptimizedLSTMCell's
+gate layout, one dense layer per gate: ``lstm_<camera>/i{i,f,g,o}/kernel``
+(in, H), no bias, and ``lstm_<camera>/h{i,f,g,o}/kernel`` (H, H) with
+``bias``, which the dense rule above carries to the same names.
+
 The conversion is strict: every JAX leaf is consumed and every port key is
 filled, with the port's shape, or it raises.
 """

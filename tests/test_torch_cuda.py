@@ -47,6 +47,9 @@ def _exact(out, ref):
 # over rows, the image shape for normalize_u8): the kernels take it through
 # their one-element path
 MISALIGNED = "misaligned"
+# pr5's stem site, per camera: 1024 samples x 3 frames of 64 x 64 x 64,
+# 805 M elements (3.2 GB in f32), four times pr4's largest
+PR5_STEM_SHAPE = (3072, 64, 64, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -89,7 +92,7 @@ def _nonfinite_(x, channels=4):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 64, 16, 16), (3, 512, 4, 4),
                                    (1001, 24), (4099, 100),
-                                   (MISALIGNED, 4099, 64)])
+                                   (MISALIGNED, 4099, 64), PR5_STEM_SHAPE])
 def test_scale_bias_relu_kernel_matches_plain(cuda, shape, dtype):
     x = _stats_inputs(shape, dtype, cuda, seed=1, shift=0.0)
     c = x.shape[1]
@@ -148,10 +151,11 @@ def test_bn_relu_kernels_place_nan_and_inf_as_plain(cuda, direction, dtype):
     assert ((ds - rds).abs() <= tol_s)[fin].all()
     assert ((db - rdb).abs() <= tol_b)[fin].all()
 STEM_SHAPE = (128, 64, 64, 64)
-# (12544, 2048): pr4's widest BatchNorm, (256, 2048, 7, 7) as rows
+# (12544, 2048): pr4's widest BatchNorm, (256, 2048, 7, 7) as rows; and
+# pr5's stem
 REDUCTION_SHAPES = [(8, 64, 32, 32), (16, 512, 4, 4), (100003, 64),
                     (1000, 3), STEM_SHAPE, (4099, 100), (MISALIGNED, 4099, 64),
-                    (12544, 2048)]
+                    (12544, 2048), PR5_STEM_SHAPE]
 
 
 def _stats_inputs(shape, dtype, cuda, seed, shift=0.5):
@@ -442,6 +446,30 @@ def test_predictor_on_cuda_matches_cpu_and_runs_the_kernels(cuda,
     pos, quat = gpu(obs)
     assert fused.normalize_u8.launches - k1 == 1
     assert fused.scale_bias_relu.launches - k2 == 9
+    cpos, cquat = Predictor(cfg, state_dict=sd, device="cpu")(obs)
+    np.testing.assert_allclose(pos, cpos, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(quat, cquat, rtol=1e-3, atol=1e-4)
+
+
+def test_pr5_predictor_on_cuda_matches_cpu_and_runs_the_kernels(
+        cuda, monkeypatch):
+    """pr5 at full width (two cameras, 3 frames of 128 x 128 through
+    ResNet-18 and an LSTM each) in f32, batch 2: the card against the CPU,
+    one normalize_u8 per camera and nine scale_bias_relu per encoder."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = preset("pr5").override(**{"model.dtype": "float32"})
+    m = cfg.model
+    sd = state_dict_from_jax(random_jax_variables(m, seed=0), m)
+    rs = np.random.RandomState(0)
+    obs = {"images": {c: rs.randint(0, 256, (2, 3, 128, 128, 3), np.uint8)
+                      for c in m.cameras},
+           "proprio": rs.randn(2, 3, m.proprio_dim).astype(np.float32)}
+    gpu = Predictor(cfg, state_dict=sd, max_batch=2, device=cuda)
+    k1, k2 = fused.normalize_u8.launches, fused.scale_bias_relu.launches
+    pos, quat = gpu(obs)
+    assert fused.normalize_u8.launches - k1 == 2
+    assert fused.scale_bias_relu.launches - k2 == 18
     cpos, cquat = Predictor(cfg, state_dict=sd, device="cpu")(obs)
     np.testing.assert_allclose(pos, cpos, rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(quat, cquat, rtol=1e-3, atol=1e-4)

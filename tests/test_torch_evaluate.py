@@ -166,7 +166,7 @@ def _run(main, argv, capsys):
     return rc, capsys.readouterr()
 
 
-@pytest.mark.parametrize("name", ["pr1", "pr2", "pr3", "pr4"])
+@pytest.mark.parametrize("name", ["pr1", "pr2", "pr3", "pr4", "pr5", "pr5la"])
 def test_cli_config_and_info_print_what_the_jax_cli_prints(name, capsys):
     for command in ("config", "info"):
         argv = [command, "--preset", name, "--set", "train.lr=0.002"]

@@ -243,15 +243,21 @@ def test_state_dict_from_jax_is_strict(pr3, fault):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"model.rot_rep": "rot6d"},
-    {"model.temporal_frames": 3, "model.temporal_mode": "lstm"},
+    {"model.proprio_dropout": 0.1},
+    {"model.backbone": "vit", "model.vit_depth": 2},
     {"model.backbone": "vit", "model.vit_pool": "mean"},
     {"model.backbone": "vit", "model.vit_pool": "cls"},
 ])
 def test_options_outside_the_slice_raise(overrides):
-    _, cfg = _cfgs(**overrides)
+    """The ViT backbone raises when the model is built, proprio dropout at
+    a train-mode forward (eval mode is the identity)."""
+    jcfg, cfg = _cfgs(**overrides)
+    batch = example_batch(jcfg.model, batch_size=2)
+    batch = {"images": {k: torch.from_numpy(v)
+                        for k, v in batch["images"].items()},
+             "proprio": torch.from_numpy(batch["proprio"])}
     with pytest.raises(NotImplementedError):
-        PoseEstimator(cfg.model)
+        PoseEstimator(cfg.model).train()(batch)
 
 
 def test_quat_normalize_matches_jax_including_zero():

@@ -135,6 +135,8 @@ def test_port_imports_no_jax():
         "import rgb_proprioceptive_pose_estimator_tpu_torch.api\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.cli\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.models.cnn_small\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.models.lstm\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.ops.pose_math\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.checkpoint\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop\n"
