@@ -58,9 +58,19 @@ Phases, one or more lines each, and the last line is the result:
    batch 4 with the same injected camera keep mask, then 16 bf16 steps at
    batch 1024 with one eval pass); and a resume with camera dropout on,
    bit for bit with the straight run, dropout masks included;
-11. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
-   over every main path), the card's name and power limit, and
-   ``{"ok": true, "device": {...}}`` last.
+11. data parallelism (``parallel/dist.py``), two ranks sharing the card
+   over gloo (NCCL refuses two ranks on one device; this checks the
+   step, not NVLink or NCCL speed): pr3 at batch 128 in f32, three SGD
+   steps against one process (losses, updates, running statistics equal
+   on the ranks bit for bit, launches per rank); pr5 with
+   dist.num_devices cut 8 -> 2 through ``api.train`` on each rank at
+   batch 1024 in bf16 (step p50/p90, samples/s, peak memory per rank,
+   the profiler's collective time), and a resume with camera dropout at
+   batch 64 bit for bit; bn_stats="pallas" on 2 devices raises the
+   reference's ValueError;
+12. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
+   over every main path, the ranks' included), the card's name and
+   power limit, and ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It fails without CUDA. It imports nothing of JAX.
@@ -155,6 +165,20 @@ PR5_SAMPLES = 4 * PR5_BATCH      # the in-memory dataset's samples
 PR5_EPISODE = 64                 # steps of each of its episodes
 PR5_CMP_BATCH = 4                # pr5's f32 step against the CPU
 PR5_RESUME_BATCH = 64
+# data parallelism on the one card: two ranks share it over gloo (NCCL
+# refuses two ranks on one device), which checks the step's correctness
+# and shape, not NVLink or NCCL speed. pr3: three SGD steps at a learning
+# rate small enough that the steps stay well-conditioned; pr5: the preset's
+# dist.num_devices cut 8 -> 2, 8 steps at batch 1024, then a resume at
+# batch 64
+DDP_RANKS = 2
+DDP_STEPS, DDP_LR = 3, 1e-4
+# card against card: the two ranks' parameter updates after DDP_STEPS,
+# against one process's, as the L2 norm of the difference over that of
+# the update (a ReLU input within rounding of 0 moves one BatchNorm
+# channel's gradients by percents, which this keeps out of the check)
+DDP_UPDATE_REL = 1e-2
+PR5_DDP_STEPS, PR5_DDP_PER_CALL, PR5_DDP_WORKERS = 8, 4, 4
 TIMED_LAUNCHES = 100
 L2_BYTES = 50 * 2 ** 20
 # Whole-path tolerances. f32: the card and the CPU run the same f32 math
@@ -1471,10 +1495,10 @@ def phase_training_pr2(rppt, fused, dev, smi, ckpt_root):
 
 
 def pr5_config(rppt):
-    """pr5 as the preset has it, on one card (the preset's
-    dist.num_devices=8 is data parallelism, which the port refuses), with
-    one host augmentation thread per core of the card's host (the preset's
-    32 would build up to 64 batches of 302 MB ahead of a 16-step run)."""
+    """pr5 as the preset has it, in one process (the preset's
+    dist.num_devices=8 cut to 1; phase_ddp_pr5 cuts it to 2), with one
+    host augmentation thread per core of the card's host (the preset's 32
+    would build up to 64 batches of 302 MB ahead of a 16-step run)."""
     return rppt.preset("pr5").override(**{"dist.num_devices": 1,
                                           "data.num_workers": 8})
 
@@ -1706,6 +1730,295 @@ def phase_evaluate(rppt, fused, dev, ckpt_path):
     return launches
 
 
+def phase_ddp_pr3(cfg, dev, smi, dataset, devices=None, backend="gloo"):
+    """``cfg`` (pr3 at full width here) in f32: DDP_STEPS SGD steps
+    (``parallel/dist.run_steps``) from seed-0 weights on ``devices``
+    (default DDP_RANKS ranks sharing the card) over ``backend``, against
+    the same steps in this process: each step's loss, the parameter
+    updates, the running statistics (bitwise equal on the ranks) and the
+    kernel launches of every step on every rank (none are counted on the
+    CPU). Returns the ranks' launch counts, summed."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
+        random_jax_variables,
+        state_dict_from_jax,
+    )
+
+    devices = devices or [torch.device("cuda", 0)] * DDP_RANKS
+    n = len(devices)
+    cfg = cfg.override(**{
+        "model.dtype": "float32", "train.optimizer": "sgd",
+        "train.lr": DDP_LR, "train.grad_clip": 0.0, "dist.num_devices": n})
+    batch, route = cfg.data.batch_size, cfg.model.bn_stats
+    sd = state_dict_from_jax(random_jax_variables(cfg.model, seed=0),
+                             cfg.model)
+    batches = [dataset.get_batch(np.arange(i * batch, (i + 1) * batch),
+                                 augment=True, seed=i)
+               for i in range(DDP_STEPS)]
+    t = time.perf_counter()
+    one = dist.run_steps(cfg.override(**{"dist.num_devices": 1}), dev, sd,
+                         batches)
+    t_one = time.perf_counter() - t
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dist.launch(dist.run_steps, cfg, devices, backend, sd, batches)
+    t_ranks = time.perf_counter() - t
+    loss_rel = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                   for r in ranks for g, w in zip(r["losses"], one["losses"]))
+    r0, want = ranks[0]["state_dict"], one["state_dict"]
+    stats = [k for k in r0 if k.endswith(("running_mean", "running_var"))]
+    same = all(torch.equal(r["state_dict"][k], r0[k]) for r in ranks
+               for k in r0)
+    stats_err = max(((r0[k] - want[k]).abs() / (CMP_STATS_ATOL + CMP_STATS_RTOL
+                                                * want[k].abs())).max().item()
+                    for k in stats)
+    moved = [k for k, v in want.items() if v.is_floating_point()
+             and k not in stats and not k.startswith("proprio.proprio_")]
+    diff = math.sqrt(sum(float(((r0[k] - want[k]) ** 2).sum())
+                         for k in moved))
+    update = math.sqrt(sum(float(((want[k] - sd[k]) ** 2).sum())
+                           for k in moved))
+    launches = [r["launches"] for r in ranks]
+    where = ("on the CPU" if dev.type == "cpu" else "sharing one card"
+             if len(set(devices)) == 1 else "one card each")
+    print(f"ddp pr3 f32 {route}: {n} ranks {where} over {backend}, global "
+          f"batch {batch}, {DDP_STEPS} SGD steps at lr {DDP_LR} in "
+          f"{t_ranks:.2f} s with the launch (one process {t_one:.2f} s): "
+          f"losses {[m['loss'] for m in ranks[0]['losses']]} against "
+          f"{[m['loss'] for m in one['losses']]}, worst rel {loss_rel:.3g} "
+          f"(rtol {CMP_LOSS_RTOL}); parameter update differs by "
+          f"{diff / update:.3g} of its L2 norm (limit {DDP_UPDATE_REL}); "
+          f"model state equal on the ranks bit for bit: {same}; running "
+          f"statistics worst against one process {stats_err:.3g} of the "
+          f"tolerance; launches per step per rank {launches[0][0]} against "
+          f"{one['launches'][0]} in one process ({smi})", flush=True)
+    check(loss_rel <= CMP_LOSS_RTOL, "ddp pr3: losses differ from one "
+                                     "process's")
+    check(diff <= DDP_UPDATE_REL * update,
+          "ddp pr3: parameter updates differ from one process's")
+    check(same, "ddp pr3: the ranks' models differ")
+    check(stats_err <= 1.0, "ddp pr3: running statistics differ from one "
+                            "process's")
+    check(all(seen == one["launches"] for seen in launches)
+          and (dev.type == "cpu" or one["launches"][0]["normalize_u8"]),
+          f"ddp pr3: launches per rank {launches}, one process "
+          f"{one['launches']}")
+    return {k: sum(step[k] for r in launches for step in r)
+            for k in KERNEL_COUNTERS}
+
+
+def collective_ms(run, iters):
+    """CPU time per call of ``run`` of the profiler's collective events
+    (``gloo:``/``nccl:`` and ``c10d::`` ones, which nest). (The kernels'
+    device time is left out: two ranks time-slice one card, and each
+    rank's kernel durations include the other's slices.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    return {e.key[:60]: round(e.cpu_time_total / iters / 1e3, 4)
+            for e in prof.key_averages()
+            if e.key.startswith(("gloo:", "nccl:", "c10d::"))}
+
+
+def _ddp_pr5_rank(cfg, device, resume_cfg):
+    """One rank of phase_ddp_pr5: ``api.train(cfg)`` as this rank of the
+    group (the datasets are MemoryDemos: the card's host has no h5py),
+    each step timed and its launches counted; two more steps under the
+    profiler; then, with deterministic cuDNN, ``resume_cfg`` straight,
+    cut at half its steps and resumed, with the camera keep masks of
+    every step recorded."""
+    import contextlib
+
+    import rgb_proprioceptive_pose_estimator_tpu_torch as rppt
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models import fusion
+    from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+
+    dataset = MemoryDemos(cfg, PR5_SAMPLES, seed=9, episode=PR5_EPISODE)
+    loop.build_dataset = lambda c, split="all": dataset
+    steps = []
+    train_step = loop.train_step
+
+    def timed_step(st, b, tc):
+        before = _counts(fused)
+        t = time.perf_counter()
+        m = train_step(st, b, tc)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t, _delta(_counts(fused),
+                                                      before)))
+        return m
+
+    loop.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        out = rppt.train(cfg, device=device)
+    finally:
+        loop.train_step = train_step
+    peak = torch.cuda.max_memory_allocated(device)
+    pipe = HostPipeline(dataset, cfg.data, device=device, train=True,
+                        rank=dist.rank(), world=dist.world())
+    try:
+        state = out["state"]
+        collectives = collective_ms(
+            lambda: loop.train_step(state, next(pipe), cfg.train), iters=2)
+    finally:
+        pipe.close()
+    result = {"times": [t * 1e3 for t, _ in steps],
+              "launches": [c for _, c in steps], "peak": peak,
+              "metrics": out["metrics"], "collectives": collectives}
+    del out, state
+    torch.cuda.empty_cache()
+
+    masks = {"straight": [], "first": [], "resumed": []}
+    draw = fusion.draw_camera_keep
+
+    @contextlib.contextmanager
+    def recording(run):
+        def record(*args, **kwargs):
+            keep = draw(*args, **kwargs)
+            masks[run].append(keep.cpu())
+            return keep
+
+        fusion.draw_camera_keep = record
+        try:
+            yield
+        finally:
+            fusion.draw_camera_keep = draw
+
+    half = resume_cfg.train.steps // 2
+    torch.backends.cudnn.deterministic = True
+    ckpt_dir = resume_cfg.train.ckpt_dir
+    with recording("straight"):
+        straight = rppt.train(resume_cfg.override(
+            **{"train.ckpt_dir": f"{ckpt_dir}_straight"}), device=device)
+    with recording("first"):
+        rppt.train(resume_cfg.override(**{"train.steps": half}),
+                   device=device)
+    with recording("resumed"):
+        resumed = rppt.train(resume_cfg, device=device)
+    result["resume"] = {
+        "differ": _checkpoint_differences(resumed["ckpt_path"],
+                                          straight["ckpt_path"]),
+        "loss": (resumed["metrics"]["loss"], straight["metrics"]["loss"]),
+        "steps": resumed["state"].step,
+        "masks": {k: len(v) for k, v in masks.items()},
+        "masks_equal": sum(torch.equal(a, b) for a, b in zip(
+            masks["first"] + masks["resumed"], masks["straight"])),
+        "dropped": int(sum(int((m == 0).sum()) for m in masks["straight"])),
+        "entries": sum(m.numel() for m in masks["straight"])}
+    return result
+
+
+def phase_ddp_pr5(rppt, dev, smi, ckpt_root, devices=None):
+    """pr5 at full width, bf16, bn_stats="reduce", global batch 1024 with
+    dist.num_devices cut 8 -> DDP_RANKS, the ranks sharing the card over
+    gloo: PR5_DDP_STEPS steps through api.train on each rank, step time
+    p50/p90 after the first call, samples/s, peak memory per rank, the
+    profiler's collective time; then a resume with camera dropout at
+    batch PR5_RESUME_BATCH, bit for bit with the straight run. Returns the
+    ranks' launch counts, summed."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
+        PoseEstimator,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+
+    devices = devices or [torch.device("cuda", 0)] * DDP_RANKS
+    n = len(devices)
+    base = pr5_config(rppt).override(**{
+        "dist.num_devices": n, "data.num_workers": PR5_DDP_WORKERS,
+        "model.bn_stats": "reduce"})
+    cfg = train_cfg(base, f"{ckpt_root}/pr5_ddp", steps=PR5_DDP_STEPS,
+                    eval_every=PR5_DDP_STEPS, **{
+                        "train.steps_per_call": PR5_DDP_PER_CALL,
+                        "train.log_every": PR5_DDP_PER_CALL})
+    resume_cfg = train_cfg(base.override(**{
+        "data.batch_size": PR5_RESUME_BATCH}), f"{ckpt_root}/pr5_ddp_resume",
+        steps=PR5_DDP_STEPS, eval_every=0, **{
+            "train.steps_per_call": PR5_DDP_PER_CALL,
+            "train.log_every": PR5_DDP_PER_CALL})
+    m = cfg.model
+    with torch.device("meta"):
+        act_sites, _ = bn_sites(PoseEstimator(m))
+    want = {"normalize_u8": len(m.cameras), "scale_bias_relu": act_sites,
+            "scale_bias_relu_backward": act_sites, "channel_stats": 0}
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dist.launch(_ddp_pr5_rank, cfg, devices, "gloo", resume_cfg)
+    t_all = time.perf_counter() - t
+    batch = cfg.data.batch_size
+    for r, res in enumerate(ranks):
+        times = res["times"]
+        check(len(times) == PR5_DDP_STEPS, f"ddp pr5 rank {r}: {len(times)} "
+                                           f"steps")
+        for i, seen in enumerate(res["launches"]):
+            check(seen == want, f"ddp pr5 rank {r} step {i + 1}: launches "
+                                f"{seen}, expected {want}")
+        met = res["metrics"]
+        check(all(math.isfinite(met[k]) for k in ("loss", "eval_loss")),
+              f"ddp pr5 rank {r}: non-finite metrics {met}")
+        p50, p90 = (float(v) for v in np.percentile(
+            times[PR5_DDP_PER_CALL:], [50, 90]))
+        print(f"ddp pr5 bf16 reduce rank {r} of {n} (sharing one card over "
+              f"gloo: correctness and the step's shape, not NVLink or NCCL "
+              f"speed): global batch {batch} ({batch // n} per rank), "
+              f"synchronized step p50 {p50:.3f} ms p90 {p90:.3f} ms, "
+              f"{batch / p50 * 1e3:.1f} samples/s at p50; loss "
+              f"{met['loss']:.5f} eval_loss {met['eval_loss']:.5f}; peak "
+              f"memory {res['peak'] / 2**30:.2f} GiB (max_memory_allocated "
+              f"of the rank); profiler: collectives ms per step (CPU, "
+              f"nested) "
+              f"{json.dumps(res['collectives'])}; launches per step {want} "
+              f"({smi})", flush=True)
+        rs = res["resume"]
+        print(f"ddp pr5 resume rank {r} (deterministic cuDNN, batch "
+              f"{PR5_RESUME_BATCH}): straight {PR5_DDP_STEPS} steps, cut at "
+              f"{PR5_DDP_STEPS // 2} and resumed to step {rs['steps']}; loss "
+              f"{rs['loss'][0]!r} against {rs['loss'][1]!r}; elements that "
+              f"differ from the straight run's final state {rs['differ']}; "
+              f"camera keep masks drawn {rs['masks']}, equal to the straight "
+              f"run's in {rs['masks_equal']} steps, {rs['dropped']} of "
+              f"{rs['entries']} entries dropped", flush=True)
+        check(rs["steps"] == PR5_DDP_STEPS and rs["loss"][0] == rs["loss"][1]
+              and not any(rs["differ"].values()),
+              f"ddp pr5 rank {r}: the resumed run differs from the straight "
+              "run")
+        check(rs["masks"]["straight"] == PR5_DDP_STEPS
+              and rs["masks_equal"] == PR5_DDP_STEPS and rs["dropped"] > 0,
+              f"ddp pr5 rank {r}: camera keep masks {rs}")
+    print(f"ddp pr5: {n} ranks launched, trained, profiled and resumed in "
+          f"{t_all:.2f} s", flush=True)
+    return {k: sum(step[k] for res in ranks for step in res["launches"])
+            for k in KERNEL_COUNTERS}
+
+
+def phase_ddp_refusal(rppt, dev, devices=None):
+    """bn_stats="pallas" on 2 devices raises the reference's ValueError
+    before any rank starts."""
+    devices = devices or [torch.device("cuda", 0)] * DDP_RANKS
+    cfg = pr5_config(rppt).override(**{"dist.num_devices": len(devices),
+                                       "model.bn_stats": "pallas"})
+    try:
+        rppt.train(cfg, device=dev, devices=devices, backend="gloo")
+    except ValueError as e:
+        check("single-device only" in str(e)
+              and f"{len(devices)}-device mesh" in str(e),
+              f"ddp pallas refusal: {e}")
+        print(f"ddp refusal: bn_stats='pallas' on {len(devices)} devices "
+              f"raises ValueError: {e}", flush=True)
+        return
+    check(False, "bn_stats='pallas' on 2 devices did not raise")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1784,6 +2097,14 @@ def main() -> int:
             rppt, fused, dev, smi, ckpt_root, pr5_data, "pr5",
             pr5_config(rppt).override(
                 **{"data.batch_size": PR5_RESUME_BATCH}))
+        del pr5_data
+        torch.cuda.empty_cache()
+        # data parallelism: the ranks' kernels are counted in the ranks
+        paths["ddp pr3 (2 ranks)"] = phase_ddp_pr3(rppt.preset("pr3"), dev,
+                                                   smi, pr3_data)
+        paths["ddp pr5 (2 ranks)"] = phase_ddp_pr5(rppt, dev, smi,
+                                                   ckpt_root)
+        phase_ddp_refusal(rppt, dev)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

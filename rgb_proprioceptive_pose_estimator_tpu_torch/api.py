@@ -12,6 +12,7 @@ import torch
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import PoseEstimator
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
 
 Step = Union[int, str, None]
@@ -28,17 +29,25 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return dev
 
 
-def train(cfg: Config, *, device: Union[str, torch.device, None] = None
-          ) -> Dict[str, Any]:
+def train(cfg: Config, *, device: Union[str, torch.device, None] = None,
+          devices: Optional[Sequence[Union[str, torch.device]]] = None,
+          backend: Optional[str] = None) -> Dict[str, Any]:
     """Train per config (engine/loop.fit) on ``device`` (CUDA by default).
     Returns {"state", "model", "metrics", "ckpt_dir", "ckpt_path"}: the
     final training state and model, the last logged train metrics with the
     last eval's under ``eval_*``, train.ckpt_dir, which
     ``Predictor(cfg, ckpt_dir)`` and ``evaluate(cfg, ckpt_dir)`` restore
-    from, and the final checkpoint file."""
+    from, and the final checkpoint file.
+
+    With dist.num_devices resolving to N > 1 (0: every visible card),
+    the kernels are built here and N processes train data-parallel, one
+    per device of ``devices`` (default cuda:0 .. N-1) over ``backend``
+    (default "nccl"; "gloo" for ranks that share a card, and on the CPU);
+    the state and model returned are those of the final checkpoint, on
+    ``device``. Inside a process group this process trains as its rank."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import fit
 
-    out = fit(cfg, resolve_device(device))
+    out = fit(cfg, resolve_device(device), devices=devices, backend=backend)
     return {k: out[k] for k in ("state", "model", "metrics", "ckpt_dir",
                                 "ckpt_path")}
 
@@ -105,7 +114,13 @@ def evaluate(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
     split="auto" evaluates the held-out split when data.val_fraction or
     data.val_path is set, else the full dataset; "val" without either
     raises. data_path evaluates another demo file (split "all"). The
-    options after it are evaluate_on's."""
+    options after it are evaluate_on's.
+
+    With dist.num_devices resolving to N > 1, N launched ranks (as
+    ``train`` launches them) each evaluate their slice of every batch of
+    ``(min(data.batch_size, samples) // N) * N`` samples, and rank 0's
+    report is returned; a split of fewer samples than N is evaluated on
+    one device, as the reference falls back to."""
     if data_path is not None:
         cfg = cfg.override(**{"data.path": data_path,
                               "data.source": "hdf5",
@@ -129,13 +144,27 @@ def evaluate(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
         build_dataset,
     )
 
-    model, got_step = load_model(cfg, ckpt_dir, step, device)
+    dev = resolve_device(device)
+    # a missing checkpoint raises before any data is read
+    checkpoint.resolve(ckpt_dir or cfg.train.ckpt_dir, step)
     dataset = build_dataset(cfg, split=split)
-    return evaluate_on(cfg, model, dataset, step=got_step,
-                       max_batches=max_batches, per_demo=per_demo,
-                       percentiles=percentiles, success_at=success_at,
-                       dump_predictions=dump_predictions,
-                       drop_cameras=drop_cameras)
+    n = dist.resolve_num_devices(cfg, dev)
+    kw = dict(max_batches=max_batches, per_demo=per_demo,
+              percentiles=percentiles, success_at=success_at,
+              dump_predictions=dump_predictions, drop_cameras=drop_cameras)
+    if (n > 1 and not dist.is_initialized()
+            and min(cfg.data.batch_size, len(dataset)) >= n):
+        return dist.launch(_evaluate_rank, cfg, dist.rank_devices(dev, n),
+                           dist.default_backend(dev), ckpt_dir, step, split,
+                           kw)[0]
+    model, got_step = load_model(cfg, ckpt_dir, step, dev)
+    return evaluate_on(cfg, model, dataset, step=got_step, **kw)
+
+
+def _evaluate_rank(cfg: Config, device: torch.device,
+                   ckpt_dir: Optional[str], step: Step, split: str,
+                   kw: Dict[str, Any]) -> Dict[str, Any]:
+    return evaluate(cfg, ckpt_dir, step, split=split, device=device, **kw)
 
 
 def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
@@ -147,7 +176,11 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
     """evaluate after the restore and the dataset: ``model`` (on its
     device) over ``dataset`` (any object with the datasets' ``__len__`` and
     ``get_batch``), the mean eval metrics over up to ``max_batches``
-    batches (0 = one epoch), with ``step`` under "step".
+    batches (0 = one epoch), with ``step`` under "step". On a rank of a
+    group of N, each batch of ``(min(data.batch_size, samples) // N) *
+    N`` is sharded over the ranks and its metrics averaged over them
+    (whole batches on every rank when the split has fewer than N
+    samples); the per-sample reports below run on rank 0 alone.
 
     per_demo (hdf5 datasets) adds "per_demo", each demo's pos/rot MAE and
     length; percentiles adds "pos_err_cm"/"rot_err_deg" p50/p90/p95/max;
@@ -172,8 +205,13 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
     n = len(dataset)
     if n == 0:
         raise ValueError("the eval split is empty")
+    world = dist.world()
+    batch_size = (min(cfg.data.batch_size, n) // world) * world
+    if batch_size == 0:
+        world, batch_size = 1, min(cfg.data.batch_size, n)
     pipe = HostPipeline(dataset, cfg.data, device=device, train=False,
-                        batch_size=min(cfg.data.batch_size, n))
+                        batch_size=batch_size,
+                        rank=dist.rank() if world > 1 else 0, world=world)
     try:
         out: Dict[str, Any] = evaluate_pipeline(
             model, pipe, cfg, max_batches=max_batches,
@@ -181,7 +219,8 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
     finally:
         pipe.close()
     out["step"] = step
-    if not (per_demo or percentiles or success_at or dump_predictions):
+    if (not (per_demo or percentiles or success_at or dump_predictions)
+            or dist.rank() != 0):
         return out
 
     if dump_predictions and not dump_predictions.endswith(".npz"):

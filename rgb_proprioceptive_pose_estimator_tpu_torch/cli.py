@@ -10,7 +10,11 @@ Usage:
     python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli info --preset pr4
 
 ``train``, ``eval`` and ``predict`` run on ``--device`` (default cuda;
-``--device cpu`` runs the kernels' plain versions on the CPU). ``export``,
+``--device cpu`` runs the kernels' plain versions on the CPU); ``train``
+and ``eval`` with ``dist.num_devices`` resolving to N > 1 run N
+data-parallel processes, one per card (``api.train``, ``api.evaluate``).
+``info`` prints the reference's report, and on stderr the device count
+that ``dist.num_devices`` resolves to. ``export``,
 ``serve``, ``render``, ``repack``, ``sweep``, ``curves`` and ``inspect``
 are not in the port yet: they exit with status 2, naming ROADMAP.md
 queue A item 11.
@@ -64,6 +68,18 @@ def load_config(args) -> Config:
     if overrides:
         cfg = cfg.override(**overrides)
     return cfg
+
+
+def devices_info(cfg: Config, device: str) -> str:
+    """The data-parallel width dist.num_devices resolves to on
+    ``device``'s kind (parallel/dist.resolve_num_devices), as a line."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+
+    head = f"devices: dist.num_devices={cfg.dist.num_devices} on {device}"
+    try:
+        return f"{head} resolves to {dist.resolve_num_devices(cfg, device)}"
+    except (RuntimeError, ValueError) as e:
+        return f"{head}: {e}"
 
 
 def model_info(cfg: Config) -> Dict[str, Any]:
@@ -222,6 +238,7 @@ def main(argv=None) -> int:
         return 0
     if args.command == "info":
         print(json.dumps(model_info(cfg), indent=2))
+        print(devices_info(cfg, args.device), file=sys.stderr)
         return 0
 
     import rgb_proprioceptive_pose_estimator_tpu_torch as rppt

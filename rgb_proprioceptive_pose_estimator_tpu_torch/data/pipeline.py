@@ -14,8 +14,12 @@ Stages:
 The sampler and the per-batch seeds are the JAX package's, so for one
 config and seed the batches are bit-identical. Fixed batch size; partial
 batches are dropped. The sampler state {seed, consumed} goes into
-checkpoints. One process, one device: the JAX package's multi-host slices
-and sharded device cache are not ported.
+checkpoints. Under data parallelism (``rank``/``world``, one process per
+device) every rank draws the same global batch indices and builds only
+its contiguous slice of them with the global batch's seed, as the JAX
+package's processes do under multi-host: augmentation is drawn per sample,
+so rank r's rows are rows ``r*B/world`` to ``(r+1)*B/world`` of the
+global batch, bit for bit. The sharded device cache is not ported.
 """
 
 from __future__ import annotations
@@ -124,16 +128,23 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 class HostPipeline:
     """Infinite (train) or single-epoch (eval) iterator of device batches:
     dicts of tensors on ``device`` shaped as the dataset's ``get_batch``
-    returns them."""
+    returns them; ``batch_size`` is the global batch, of which rank
+    ``rank`` of ``world`` gets its contiguous slice."""
 
     def __init__(self, dataset, cfg: DataConfig,
                  device: Union[str, torch.device] = "cpu",
-                 train: bool = True, batch_size: Optional[int] = None):
+                 train: bool = True, batch_size: Optional[int] = None,
+                 rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
         self.train = train
         self.batch_size = batch_size or cfg.batch_size
+        if self.batch_size % world != 0 or not 0 <= rank < world:
+            raise ValueError(
+                f"global batch {self.batch_size} not divisible by {world} "
+                f"ranks, or rank {rank} not among them")
+        self.rank, self.world = rank, world
         if len(dataset) < self.batch_size:
             raise ValueError(
                 f"dataset size {len(dataset)} < batch size {self.batch_size}")
@@ -179,6 +190,8 @@ class HostPipeline:
 
     def _build(self, global_batch: int) -> Dict[str, Any]:
         idx = self._indices_for(global_batch)
+        per = self.batch_size // self.world
+        idx = idx[self.rank * per:(self.rank + 1) * per]
         seed = (self.cfg.seed * 7_919 + global_batch) % (2 ** 31 - 1)
         return self.dataset.get_batch(idx, augment=self.augment, seed=seed)
 

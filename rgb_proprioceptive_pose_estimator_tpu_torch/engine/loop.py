@@ -1,5 +1,5 @@
-"""The training driver on one device (counterpart of the JAX package's
-``engine/loop.py``).
+"""The training loop (counterpart of the JAX package's
+``engine/loop.py``), on one device or data-parallel on several.
 
 ``fit(cfg, device)`` builds the datasets and a fresh state and hands them
 to ``train_on``, which does everything after: proprio statistics from the
@@ -10,10 +10,20 @@ state), the train and eval pipelines, the steps in calls of
 checks), log, eval and checkpoint cadences, the best-eval checkpoint
 (``train.ckpt_best_metric``), save on SIGTERM, and the final checkpoint.
 
+With ``dist.num_devices`` resolving to N > 1 (``parallel/dist.py``: 0
+means every visible card), ``fit`` launches N processes, one per device,
+each running ``fit`` as a rank of the group, and returns rank 0's result;
+a process that is already a rank (under ``torchrun``, say) runs as one.
+On a rank, ``train_on`` wraps the model in DistributedDataParallel, feeds
+it its slice of each global batch, averages the logged and eval metrics
+over the ranks, stops every rank at the same step on SIGTERM, and lets
+rank 0 alone write checkpoints and metrics. The global batch must divide
+by N; ``bn_stats="pallas"`` is refused on N > 1 as in the reference.
+
 Not in the port yet, and refused rather than ignored
 (``check_fit_supported``): warm starts, early stopping, EMA and the other
-training extras (ROADMAP.md queue A, item 9); more than one device
-(item 8f).
+training extras (ROADMAP.md queue A, item 9); training across hosts
+(item 8g).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
     eval_step,
     train_step,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils.metrics import MetricsLogger
 
@@ -48,7 +59,9 @@ def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
                       drop_cameras: Sequence[str] = ()) -> Dict[str, float]:
     """Average eval metrics over (up to) one epoch; ``start`` rotates
     partial passes across the split (HostPipeline.epoch). ``drop_cameras``
-    are removed from every batch: scored as dead sensors."""
+    are removed from every batch: scored as dead sensors. A pipeline of
+    a rank's slices gives each global batch's metrics, averaged over the
+    ranks."""
     sums: Dict[str, float] = {}
     n = 0
     for batch in pipeline.epoch(max_batches=max_batches, start=start):
@@ -56,21 +69,34 @@ def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
             batch = dict(batch, images={k: v for k, v in
                                         batch["images"].items()
                                         if k not in drop_cameras})
-        for k, v in eval_step(model, batch, cfg.train).items():
+        m = eval_step(model, batch, cfg.train)
+        if pipeline.world > 1:
+            m = dist.mean(m)
+        for k, v in m.items():
             sums[k] = sums.get(k, 0.0) + float(v)
         n += 1
     return {k: v / max(n, 1) for k, v in sums.items()}
 
 
-def check_fit_supported(cfg: Config) -> None:
-    """Raise NotImplementedError, naming its ROADMAP.md item, for each
-    option of the JAX package's fit that the port lacks."""
+def check_fit_supported(cfg: Config, n_dev: int = 1) -> None:
+    """Raise, as the reference's fit does, for a global batch that
+    ``n_dev`` devices do not divide and for ``bn_stats="pallas"`` on more
+    than one (ValueError), and NotImplementedError, naming its ROADMAP.md
+    item, for each option of the JAX package's fit that the port lacks."""
     t, m, d = cfg.train, cfg.model, cfg.data
-    if cfg.dist.num_devices > 1:
-        raise NotImplementedError(
-            f"dist.num_devices={cfg.dist.num_devices}: the port trains on "
-            "one device (data parallelism with global-batch BatchNorm comes "
-            "with ROADMAP.md queue A, item 8f); set dist.num_devices=1")
+    dist.check_supported(cfg)
+    if d.batch_size % n_dev != 0:
+        raise ValueError(
+            f"global batch {d.batch_size} not divisible by {n_dev} devices")
+    if m.bn_stats == "pallas" and n_dev > 1:
+        # the one-pass statistics kernel (ops/fused.channel_stats) sums one
+        # rank's rows: on a sharded batch its statistics would be the
+        # rank's, not the global batch's
+        raise ValueError(
+            f"model.bn_stats='pallas' is single-device only (got "
+            f"{n_dev}-device mesh): pallas_call cannot partition the batch "
+            "reduction. Use bn_stats='matmul' (SPMD-safe, MXU-routed) or "
+            "'reduce' (default) on multi-device meshes.")
     later = {
         "train.init_from": (bool(t.init_from), 9),
         "train.init_from_torch": (bool(t.init_from_torch), 9),
@@ -92,16 +118,58 @@ def check_fit_supported(cfg: Config) -> None:
                 f"{item})")
 
 
-def fit(cfg: Config, device: torch.device) -> Dict[str, Any]:
+def fit(cfg: Config, device: torch.device, *,
+        devices: Optional[Sequence[torch.device]] = None,
+        backend: Optional[str] = None) -> Dict[str, Any]:
     """Train per cfg on ``device`` from freshly initialized weights (seed
     train.seed), or from the checkpoint in train.ckpt_dir that
-    train.resume names; returns train_on's result."""
-    check_fit_supported(cfg)
+    train.resume names; returns train_on's result.
+
+    When dist.num_devices resolves to N > 1 and this process is not a rank
+    yet, N ranks are launched on ``devices`` (default cuda:0 .. N-1, or
+    the CPU N times) over ``backend`` (default "nccl" on CUDA, "gloo" on
+    the CPU; several ranks on one card need "gloo"), and the result holds
+    rank 0's metrics, and the state and model of its final checkpoint on
+    ``device``."""
+    device = torch.device(device)
+    if devices is None:
+        n = dist.resolve_num_devices(cfg, device)
+    else:
+        n = len(devices)
+        if cfg.dist.num_devices not in (0, n):
+            raise ValueError(f"dist.num_devices={cfg.dist.num_devices} "
+                             f"but {n} devices given")
+    check_fit_supported(cfg, n)
+    if n > 1 and not dist.is_initialized():
+        return _fit_ranks(cfg, device, devices, backend, n)
     has_val = cfg.data.val_fraction > 0 or bool(cfg.data.val_path)
     dataset = build_dataset(cfg, split="train" if has_val else "all")
     eval_ds = build_dataset(cfg, split="val") if has_val else dataset
     state = create_state(cfg, device)
     return train_on(cfg, state, dataset, eval_ds)
+
+
+def _fit_rank(cfg: Config, device: torch.device) -> Dict[str, Any]:
+    out = fit(cfg, device)
+    return {"metrics": out["metrics"], "ckpt_path": out["ckpt_path"]}
+
+
+def _fit_ranks(cfg: Config, device: torch.device,
+               devices: Optional[Sequence[torch.device]],
+               backend: Optional[str], n: int) -> Dict[str, Any]:
+    """fit on n launched ranks; the state and model of rank 0's final
+    checkpoint, restored on ``device``."""
+    out = dist.launch(_fit_rank, cfg,
+                      devices or dist.rank_devices(device, n),
+                      backend or dist.default_backend(device))[0]
+    state = create_state(cfg, device)
+    if out["ckpt_path"] is not None:
+        _, state_dict, training = checkpoint.load_training(out["ckpt_path"])
+        state.model.load_state_dict(state_dict, strict=True)
+        state.optimizer.load_state_dict(training["optimizer"])
+        state.step = int(training["step"])
+    return {"state": state, "model": state.model, "metrics": out["metrics"],
+            "ckpt_dir": cfg.train.ckpt_dir, "ckpt_path": out["ckpt_path"]}
 
 
 def _check_cadence(cfg: Config) -> int:
@@ -148,7 +216,16 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
     evaluating on ``eval_ds``. Returns {state, model, metrics, ckpt_dir,
     ckpt_path}: the last logged train metrics with the last eval's under
     ``eval_*``, and the final checkpoint's path."""
-    check_fit_supported(cfg)
+    model = state.model
+    device = next(model.parameters()).device
+    world, rank = dist.world(), dist.rank()
+    n = dist.resolve_num_devices(cfg, device)
+    if n != world:
+        raise ValueError(
+            f"dist.num_devices={cfg.dist.num_devices} asks for {n} devices "
+            f"and this process runs {world}: fit launches one process per "
+            "device; set dist.num_devices=1 to train here alone")
+    check_fit_supported(cfg, world)
     tcfg = cfg.train
     spc = _check_cadence(cfg)
     if tcfg.ckpt_best_metric and not tcfg.eval_every:
@@ -156,8 +233,6 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
             "train.ckpt_best_metric requires train.eval_every > 0 "
             "(best tracking selects on eval metrics)")
     resume = _resume_step(cfg)
-    model = state.model
-    device = next(model.parameters()).device
 
     if cfg.model.use_proprio and cfg.model.proprio_normalize:
         # train-split obs-normalization statistics into the model buffers;
@@ -188,18 +263,26 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
             f"resume step {start_step} leaves {tcfg.steps - start_step} "
             f"steps, not a multiple of train.steps_per_call={spc}")
 
-    train_pipe = HostPipeline(dataset, cfg.data, device=device, train=True)
+    if world > 1 and state.ddp is None:
+        state.ddp = dist.data_parallel(model)
+    train_pipe = HostPipeline(dataset, cfg.data, device=device, train=True,
+                              rank=rank, world=world)
     if resume is not None:
         train_pipe.load_state_dict(training["pipeline"])
-    eval_bs = min(cfg.data.batch_size, len(eval_ds))
+    # the eval batch shrinks to a small held-out split, still a multiple
+    # of the device count
+    eval_bs = min(cfg.data.batch_size, (len(eval_ds) // world) * world)
     if eval_bs == 0:
-        raise ValueError("the eval split is empty; increase "
-                         "data.val_fraction")
+        raise ValueError(
+            f"val split has {len(eval_ds)} samples < {world} devices; "
+            "increase data.val_fraction or reduce dist.num_devices")
     eval_pipe = HostPipeline(eval_ds, cfg.data, device=device, train=False,
-                             batch_size=eval_bs)
+                             batch_size=eval_bs, rank=rank, world=world)
     schedule = state.optimizer.schedule
     metrics_path = tcfg.metrics_path or f"{tcfg.ckpt_dir}/metrics.jsonl"
-    logger = MetricsLogger(metrics_path, tensorboard=tcfg.tensorboard,
+    # rank 0 writes the metrics, as it writes the checkpoints
+    logger = MetricsLogger(metrics_path if rank == 0 else "",
+                           tensorboard=tcfg.tensorboard and rank == 0,
                            tb_dir=tcfg.ckpt_dir)
 
     def training_state(**extra) -> Dict[str, Any]:
@@ -208,9 +291,11 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
 
     def save(step: int) -> str:
         # a step saved by an earlier run (an explicit-step resume re-walks
-        # them) is replaced
-        return checkpoint.save_step(tcfg.ckpt_dir, step, tcfg.ckpt_keep, cfg,
+        # them) is replaced; rank 0 writes, and no rank goes on before
+        path = checkpoint.save_step(tcfg.ckpt_dir, step, tcfg.ckpt_keep, cfg,
                                     model.state_dict(), training_state())
+        dist.barrier()
+        return path
 
     # save on SIGTERM (train.save_on_signal): finish the step in flight,
     # checkpoint it and return; only from the main thread, where Python
@@ -252,7 +337,7 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                 last_metrics = dict(vals)
                 last_metrics.update({
                     "images_per_sec": imgs / dt,
-                    "images_per_sec_per_chip": imgs / dt,
+                    "images_per_sec_per_chip": imgs / dt / world,
                     "host_queue_depth": train_pipe.queue_depth(),
                     "lr": float(schedule(step1)),
                 })
@@ -277,13 +362,15 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                         checkpoint.save_best(
                             tcfg.ckpt_dir, step1, cfg, model.state_dict(),
                             training_state(best_val=float(v)))
+                        dist.barrier()
                 # eval time is not train throughput
                 t_log = time.perf_counter()
                 log_anchor = step1
             if tcfg.ckpt_every and step1 % tcfg.ckpt_every == 0:
                 ckpt_path = save(step1)
                 last_saved = step1
-            if preempt_signum is not None:
+            # every rank stops at the same step when any received it
+            if dist.any_rank(preempt_signum is not None):
                 final_step = step1
                 last_metrics["preempted_at"] = float(step1)
                 logger.log(step1, {"preempted_at": float(step1)},

@@ -1,5 +1,6 @@
 """Training state (counterpart of the JAX package's ``engine/state.py``):
-the model, its optimizer, the step count and a ``torch.Generator``.
+the model, its optimizer, the step count, a ``torch.Generator``, and the
+model's data-parallel wrapper on a rank of a group.
 
 The JAX package threads one immutable pytree through a compiled step; here
 the model and optimizer are updated in place by each step.
@@ -38,6 +39,9 @@ class TrainState:
     optimizer: Optimizer
     step: int
     generator: torch.Generator     # host-side randomness of the run
+    # the model in DistributedDataParallel on a rank of a group of more
+    # than one (parallel/dist.data_parallel): the train step runs it
+    ddp: Optional[nn.Module] = None
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

@@ -14,6 +14,12 @@ The model's randomness in training (camera dropout) comes from a
 ``torch.Generator`` made anew for each step from ``(train.seed, step)``,
 as the JAX package folds the step into its dropout key: a resumed run
 draws the same masks as a straight one.
+
+On a rank of a data-parallel group the step runs the state's
+DistributedDataParallel wrapper: each rank's loss is the mean over its
+equal share of the global batch, and DDP averages the gradients, so the
+clip, the global norm and the update see the global batch's gradients;
+the loss components it returns are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose import (
     pose_loss,
     pose_metrics,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
 ADAM_EPS = 1e-8                  # optax's adam/adamw default
 SGD_MOMENTUM = 0.9
@@ -165,13 +172,13 @@ def forward_backward(model: torch.nn.Module, batch: Dict,
     """Train-mode forward, loss and backward: the gradients land in the
     parameters' ``.grad`` (cleared first), the BatchNorm running statistics
     are updated. ``generator`` draws the model's dropout masks. Returns the
-    loss components, detached."""
+    loss components, detached (averaged over the ranks of a group)."""
     model.train()
     for p in model.parameters():
         p.grad = None
     _, _, loss, aux = _loss(model, batch, cfg, generator)
     loss.backward()
-    return {k: v.detach() for k, v in aux.items()}
+    return dist.mean({k: v.detach() for k, v in aux.items()})
 
 
 def train_step(state, batch: Dict, cfg: TrainConfig
@@ -183,7 +190,8 @@ def train_step(state, batch: Dict, cfg: TrainConfig
     if model.cfg.camera_dropout > 0:
         generator = dropout_generator(cfg.seed, state.step,
                                       next(model.parameters()).device)
-    metrics = forward_backward(model, batch, cfg, generator)
+    runner = model if state.ddp is None else state.ddp
+    metrics = forward_backward(runner, batch, cfg, generator)
     if cfg.log_grad_norm:
         metrics["grad_norm"] = global_norm(
             p.grad for p in state.optimizer.params if p.grad is not None)

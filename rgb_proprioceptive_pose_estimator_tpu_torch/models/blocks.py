@@ -22,6 +22,7 @@ from torch import nn
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused import scale_bias_relu
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused_bn import bn_train
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
 BN_STATS = ("reduce", "matmul", "pallas")
 
@@ -47,12 +48,18 @@ class BatchNormAct(nn.Module):
     ``scale * x + bias`` in f32. Train mode normalizes by the batch
     statistics (biased variance), computed as ``stats_impl`` says:
 
-    - "reduce": ``torch.mean`` reductions; the folded scale and bias then
-      go to the ``scale_bias_relu`` kernel (with ``act``), whose backward
-      is a kernel too; autograd reaches x through the statistics as well.
+    - "reduce": per-channel f32 sums of x and x^2 (``torch.sum``); the
+      folded scale and bias then go to the ``scale_bias_relu`` kernel
+      (with ``act``), whose backward is a kernel too; autograd reaches x
+      through the statistics as well.
     - "matmul" / "pallas": ``ops/fused_bn.bn_train`` with its statistics
       from plain contractions or from the ``channel_stats`` kernel, and
       its closed-form backward; then plain ReLU.
+
+    On a rank of a data-parallel group the statistics are the global
+    batch's, as XLA's psum makes them in the JAX package: the sums go
+    through ``parallel/dist.all_reduce_sum`` (whose backward sums the
+    cotangents over the ranks) and are divided by the global count.
 
     Train mode also updates the running statistics, outside autograd, as
     torch does: ``running = momentum * running + (1 - momentum) * batch``
@@ -105,13 +112,16 @@ class BatchNormAct(nn.Module):
             scale = self.weight * torch.rsqrt(self.running_var + self.eps)
             bias = self.bias - self.running_mean * scale
             return self._affine(x, scale, bias)
-        n = x.numel() // x.shape[1]
+        n = x.numel() // x.shape[1] * dist.world()
         if self.stats_impl == "reduce":
             dims = tuple(d for d in range(x.ndim) if d != 1)
             xf = x.float()
-            mean = torch.mean(xf, dim=dims)
-            var = torch.clamp_min(torch.mean(torch.square(xf), dim=dims)
-                                  - torch.square(mean), 0.0)
+            s, ss = torch.sum(xf, dim=dims), torch.sum(torch.square(xf),
+                                                       dim=dims)
+            if dist.world() > 1:
+                s, ss = dist.all_reduce_sum(torch.stack([s, ss])).unbind(0)
+            mean = s / n
+            var = torch.clamp_min(ss / n - torch.square(mean), 0.0)
             scale = self.weight * torch.rsqrt(var + self.eps)
             y = self._affine(x, scale, self.bias - mean * scale)
         else:

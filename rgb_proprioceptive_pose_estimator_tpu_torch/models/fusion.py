@@ -55,6 +55,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.ops.pose_math import (
     quat_normalize,
     rot6d_to_quat,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -100,12 +101,15 @@ def draw_camera_keep(generator: torch.Generator, p: float, shape,
     return (u < 1.0 - p).float()
 
 
-def draw_forced_camera(generator: torch.Generator,
-                       live_in: torch.Tensor) -> torch.Tensor:
+def draw_forced_camera(generator: torch.Generator, live_in: torch.Tensor,
+                       first: int = 0, rows: int = 0) -> torch.Tensor:
     """One-hot (B, n) f32: per row one camera drawn uniformly among those
-    with live_in > 0 (any camera in a row without one)."""
-    u = torch.rand(live_in.shape, generator=generator,
-                   device=live_in.device)
+    with live_in > 0 (any camera in a row without one). The draw is that
+    of ``rows`` rows (default B), of which live_in holds rows ``first``
+    to ``first + B``: a rank's part of the global batch's."""
+    b, n = live_in.shape
+    u = torch.rand((rows or b, n), generator=generator,
+                   device=live_in.device)[first:first + b]
     score = torch.where(live_in > 0, u, torch.full_like(u, -1.0))
     return F.one_hot(score.argmax(-1), live_in.shape[-1]).float()
 
@@ -170,6 +174,9 @@ class PoseEstimator(nn.Module):
         cfg = self.cfg
         dev = self.pose_out.weight.device
         n = len(self.cameras)
+        # on a rank of a data-parallel group: the global batch's draws,
+        # and this rank's rows of them
+        first, rows = dist.rank() * b, dist.world() * b
 
         def need_generator():
             if generator is None:
@@ -182,7 +189,7 @@ class PoseEstimator(nn.Module):
         keep = batch.get("camera_keep")
         if keep is None:
             keep = draw_camera_keep(need_generator(), cfg.camera_dropout,
-                                    (b, n), dev)
+                                    (rows, n), dev)[first:first + b]
         live_in = torch.tensor([float(c in images) for c in self.cameras],
                                device=dev)
         if batch.get("camera_mask") is not None:
@@ -192,7 +199,8 @@ class PoseEstimator(nn.Module):
         if not cfg.use_proprio:
             forced = batch.get("camera_forced")
             if forced is None:
-                forced = draw_forced_camera(need_generator(), live_in)
+                forced = draw_forced_camera(need_generator(), live_in,
+                                            first, rows)
             dead = torch.logical_and(
                 combined.sum(-1, keepdim=True) == 0,
                 live_in.sum(-1, keepdim=True) > 0).float()

@@ -79,8 +79,12 @@ def build(names: Sequence[str] = ()) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"csrc/{name}.cu:\n{out.decode(errors='replace')}")
         else:
-            # ptxas' report: registers, stack and spills of each kernel
-            stale[name].with_suffix(".log").write_bytes(out)
+            # ptxas' report: registers, stack and spills of each kernel,
+            # also through a private name, as ranks may build at once
+            log = stale[name].with_suffix(".log")
+            tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+            tmp_log.write_bytes(out)
+            os.replace(tmp_log, log)
             os.replace(tmp, stale[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -12,6 +12,14 @@ package's closed form in plain torch (XLA there, not Pallas): per-channel
 The ``mean``/``var`` outputs feed only the caller's running-statistics
 update (models/blocks.BatchNormAct): they are not differentiable, as the
 JAX VJP ignores their cotangents.
+
+On a rank of a data-parallel group (``parallel/dist.py``) the forward
+sums ``(sum, sumsq)`` over the ranks and divides by the global count, and
+the backward sums ``(sum(g), sum(g * x))`` over the ranks for dx, as the
+JAX package's psum does. The gamma and beta gradients it returns stay the
+rank's own sums: DistributedDataParallel averages parameter gradients
+over the ranks, so global sums there would come out N times too large
+(what ``torch.nn.SyncBatchNorm`` does too).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.ops.bn_stats import (
     channel_sum_sumsq_matmul,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused import channel_stats
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
 STATS_IMPLS = ("matmul", "pallas")
 
@@ -43,8 +52,10 @@ class _BNTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, stats_impl):
-        n = x.numel() // x.shape[1]
+        n = x.numel() // x.shape[1] * dist.world()
         s, ss = _stats(x, stats_impl)
+        if dist.world() > 1:
+            s, ss = dist.sum_(torch.stack([s, ss])).unbind(0)
         mean = s / n
         var = torch.clamp_min(ss / n - torch.square(mean), 0.0)
         inv = torch.rsqrt(var + eps)
@@ -59,18 +70,25 @@ class _BNTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, gamma, mean, inv = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
+        n = x.numel() // x.shape[1] * dist.world()
         dims = tuple(d for d in range(x.ndim) if d != 1)
         gf = g.float()
         xf = x.float()
         sum_g = torch.sum(gf, dim=dims)
         cross = torch.sum(gf * xf, dim=dims)
         sum_g_xhat = (cross - mean * sum_g) * inv     # = sum(g * xhat)
+        sum_g_all, sum_g_xhat_all = sum_g, sum_g_xhat
+        if dist.world() > 1:
+            # the global batch's sums for dx; dgamma and dbeta below stay
+            # this rank's (DDP averages them)
+            sum_g_all, cross_all = dist.sum_(
+                torch.stack([sum_g, cross])).unbind(0)
+            sum_g_xhat_all = (cross_all - mean * sum_g_all) * inv
         # dx = (gamma*inv/n) * (n*g - sum_g - xhat*sum_g_xhat)
         #    = g*a + x*b + c, per-channel a, b, c
         a = gamma * inv
-        b = -gamma * torch.square(inv) * sum_g_xhat / n
-        c = -(a * sum_g / n) - b * mean
+        b = -gamma * torch.square(inv) * sum_g_xhat_all / n
+        c = -(a * sum_g_all / n) - b * mean
         dx = (gf * _channel_view(x, a) + xf * _channel_view(x, b)
               + _channel_view(x, c)).to(x.dtype)
         return dx, sum_g_xhat, sum_g, None, None

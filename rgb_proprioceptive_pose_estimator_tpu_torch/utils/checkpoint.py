@@ -9,6 +9,10 @@ train pipeline), with ``"best_val"`` in a best checkpoint.
 checkpoint of the best eval so far, alone, in ``<train.ckpt_dir>/best``.
 ``resolve`` turns (ckpt_dir, step) into a file for every reader.
 
+Under data parallelism only rank 0 writes (every rank holds the same
+model and optimizer state); the other ranks' writers return the path
+rank 0 writes, and every rank reads the same file on resume.
+
 The JAX package's orbax checkpoints need JAX to read; converting them is
 a tool outside the port's runtime (``utils.convert.state_dict_from_jax``
 takes the restored variables).
@@ -23,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
+from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 BEST = "best"
@@ -31,7 +36,9 @@ BEST = "best"
 def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor],
          training: Optional[Dict[str, Any]] = None) -> None:
     """Write the checkpoint atomically (a temporary file renamed into
-    place), with the tensors on the CPU."""
+    place), with the tensors on the CPU; on rank 0 only."""
+    if dist.rank() != 0:
+        return
     payload = {"config": cfg.to_dict(),
                "state_dict": {k: v.detach().cpu()
                               for k, v in state_dict.items()}}
@@ -73,9 +80,12 @@ def save_step(ckpt_dir: str, step: int, keep: int, cfg: Config,
               state_dict: Dict[str, torch.Tensor],
               training: Dict[str, Any]) -> str:
     """Write step_<step>.pt in ckpt_dir, then delete all but the newest
-    ``keep`` (0 keeps all). Returns the new file's path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``keep`` (0 keeps all), on rank 0 only. Returns the new file's
+    path."""
     path = step_path(ckpt_dir, step)
+    if dist.rank() != 0:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     save(path, cfg, state_dict, training)
     if keep > 0:
         for old in steps(ckpt_dir)[:-keep]:
@@ -91,6 +101,8 @@ def save_best(ckpt_dir: str, step: int, cfg: Config,
     ``training`` carries its ``best_val``. Returns the new file's path."""
     best = os.path.join(ckpt_dir, BEST)
     path = save_step(best, step, 0, cfg, state_dict, training)
+    if dist.rank() != 0:
+        return path
     for old in steps(best):
         if old != step:
             os.remove(step_path(best, old))

@@ -144,6 +144,7 @@ def test_port_imports_no_jax():
         "import rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused_bn\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.parallel.dist\n"
         "ref = 'rgb_proprioceptive_pose_estimator_tpu'\n"
         "# the card's host has no h5py; optax is the JAX package's optimizer\n"
         "banned = ('jax', 'flax', 'optax', 'h5py')\n"
