@@ -65,9 +65,11 @@ Phases, one or more lines each, and the last line is the result:
    on the ranks bit for bit, launches per rank); pr5 with
    dist.num_devices cut 8 -> 2 through ``api.train`` on each rank at
    batch 1024 in bf16 (step p50/p90, samples/s, peak memory per rank,
-   the profiler's collective time), and a resume with camera dropout at
-   batch 64 bit for bit; bn_stats="pallas" on 2 devices raises the
-   reference's ValueError;
+   the profiler's collective time), rank 0's final checkpoint restored
+   here on the card as ``api.train``'s launcher returns it (equal to
+   both ranks' final models), and a resume with camera dropout at batch
+   64 bit for bit; bn_stats="pallas" on 2 devices raises the reference's
+   ValueError;
 12. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
    over every main path, the ranks' included), the card's name and
    power limit, and ``{"ok": true, "device": {...}}`` last.
@@ -1865,6 +1867,9 @@ def _ddp_pr5_rank(cfg, device, resume_cfg):
     finally:
         loop.train_step = train_step
     peak = torch.cuda.max_memory_allocated(device)
+    # the trained model, before the profiled steps below move it
+    final = {k: v.detach().to("cpu", copy=True)
+             for k, v in out["model"].state_dict().items()}
     pipe = HostPipeline(dataset, cfg.data, device=device, train=True,
                         rank=dist.rank(), world=dist.world())
     try:
@@ -1875,7 +1880,8 @@ def _ddp_pr5_rank(cfg, device, resume_cfg):
         pipe.close()
     result = {"times": [t * 1e3 for t, _ in steps],
               "launches": [c for _, c in steps], "peak": peak,
-              "metrics": out["metrics"], "collectives": collectives}
+              "metrics": out["metrics"], "collectives": collectives,
+              "ckpt_path": out["ckpt_path"], "final": final}
     del out, state
     torch.cuda.empty_cache()
 
@@ -1927,6 +1933,7 @@ def phase_ddp_pr5(rppt, dev, smi, ckpt_root, devices=None):
     profiler's collective time; then a resume with camera dropout at
     batch PR5_RESUME_BATCH, bit for bit with the straight run. Returns the
     ranks' launch counts, summed."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
     from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
         PoseEstimator,
     )
@@ -1997,23 +2004,43 @@ def phase_ddp_pr5(rppt, dev, smi, ckpt_root, devices=None):
               f"ddp pr5 rank {r}: camera keep masks {rs}")
     print(f"ddp pr5: {n} ranks launched, trained, profiled and resumed in "
           f"{t_all:.2f} s", flush=True)
+    # what api.train's launcher returns (engine/loop.fit): rank 0's final
+    # checkpoint, restored here on the card
+    got = loop.restore_final(cfg, dev, ranks[0]["metrics"],
+                             ranks[0]["ckpt_path"])
+    restored = got["model"].state_dict()
+    differ = {r: sum(not torch.equal(restored[k].cpu(), v)
+                     for k, v in res["final"].items())
+              for r, res in enumerate(ranks)}
+    print(f"ddp pr5: rank 0's final checkpoint restored on "
+          f"{next(got['model'].parameters()).device} at step "
+          f"{got['state'].step}: tensors that differ from each rank's final "
+          f"model {differ}", flush=True)
+    check(got["state"].step == PR5_DDP_STEPS
+          and next(got["model"].parameters()).device.type == "cuda"
+          and sorted(restored) == sorted(ranks[0]["final"])
+          and not any(differ.values()),
+          f"ddp pr5: the restored state differs from the ranks' ({differ})")
+    del got, restored
+    torch.cuda.empty_cache()
     return {k: sum(step[k] for res in ranks for step in res["launches"])
             for k in KERNEL_COUNTERS}
 
 
-def phase_ddp_refusal(rppt, dev, devices=None):
-    """bn_stats="pallas" on 2 devices raises the reference's ValueError
-    before any rank starts."""
-    devices = devices or [torch.device("cuda", 0)] * DDP_RANKS
-    cfg = pr5_config(rppt).override(**{"dist.num_devices": len(devices),
+def phase_ddp_refusal(rppt):
+    """bn_stats="pallas" on 2 devices raises the reference's ValueError,
+    the check fit makes before any rank starts."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+
+    cfg = pr5_config(rppt).override(**{"dist.num_devices": DDP_RANKS,
                                        "model.bn_stats": "pallas"})
     try:
-        rppt.train(cfg, device=dev, devices=devices, backend="gloo")
+        loop.check_fit_supported(cfg, DDP_RANKS)
     except ValueError as e:
         check("single-device only" in str(e)
-              and f"{len(devices)}-device mesh" in str(e),
+              and f"{DDP_RANKS}-device mesh" in str(e),
               f"ddp pallas refusal: {e}")
-        print(f"ddp refusal: bn_stats='pallas' on {len(devices)} devices "
+        print(f"ddp refusal: bn_stats='pallas' on {DDP_RANKS} devices "
               f"raises ValueError: {e}", flush=True)
         return
     check(False, "bn_stats='pallas' on 2 devices did not raise")
@@ -2104,7 +2131,7 @@ def main() -> int:
                                                    smi, pr3_data)
         paths["ddp pr5 (2 ranks)"] = phase_ddp_pr5(rppt, dev, smi,
                                                    ckpt_root)
-        phase_ddp_refusal(rppt, dev)
+        phase_ddp_refusal(rppt)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

@@ -29,9 +29,8 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return dev
 
 
-def train(cfg: Config, *, device: Union[str, torch.device, None] = None,
-          devices: Optional[Sequence[Union[str, torch.device]]] = None,
-          backend: Optional[str] = None) -> Dict[str, Any]:
+def train(cfg: Config, *, device: Union[str, torch.device, None] = None
+          ) -> Dict[str, Any]:
     """Train per config (engine/loop.fit) on ``device`` (CUDA by default).
     Returns {"state", "model", "metrics", "ckpt_dir", "ckpt_path"}: the
     final training state and model, the last logged train metrics with the
@@ -41,13 +40,12 @@ def train(cfg: Config, *, device: Union[str, torch.device, None] = None,
 
     With dist.num_devices resolving to N > 1 (0: every visible card),
     the kernels are built here and N processes train data-parallel, one
-    per device of ``devices`` (default cuda:0 .. N-1) over ``backend``
-    (default "nccl"; "gloo" for ranks that share a card, and on the CPU);
-    the state and model returned are those of the final checkpoint, on
-    ``device``. Inside a process group this process trains as its rank."""
+    per card over NCCL (on the CPU, N processes over gloo); the state and
+    model returned are those of the final checkpoint, on ``device``.
+    Inside a process group this process trains as its rank."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import fit
 
-    out = fit(cfg, resolve_device(device), devices=devices, backend=backend)
+    out = fit(cfg, resolve_device(device))
     return {k: out[k] for k in ("state", "model", "metrics", "ckpt_dir",
                                 "ckpt_path")}
 

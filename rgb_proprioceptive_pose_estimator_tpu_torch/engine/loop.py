@@ -118,30 +118,22 @@ def check_fit_supported(cfg: Config, n_dev: int = 1) -> None:
                 f"{item})")
 
 
-def fit(cfg: Config, device: torch.device, *,
-        devices: Optional[Sequence[torch.device]] = None,
-        backend: Optional[str] = None) -> Dict[str, Any]:
+def fit(cfg: Config, device: torch.device) -> Dict[str, Any]:
     """Train per cfg on ``device`` from freshly initialized weights (seed
     train.seed), or from the checkpoint in train.ckpt_dir that
     train.resume names; returns train_on's result.
 
     When dist.num_devices resolves to N > 1 and this process is not a rank
-    yet, N ranks are launched on ``devices`` (default cuda:0 .. N-1, or
-    the CPU N times) over ``backend`` (default "nccl" on CUDA, "gloo" on
-    the CPU; several ranks on one card need "gloo"), and the result holds
-    rank 0's metrics, and the state and model of its final checkpoint on
-    ``device``."""
+    yet, N ranks are launched, on cuda:0 .. N-1 over "nccl" (on the CPU N
+    times over "gloo"), and the result holds rank 0's metrics, and the
+    state and model of its final checkpoint on ``device``."""
     device = torch.device(device)
-    if devices is None:
-        n = dist.resolve_num_devices(cfg, device)
-    else:
-        n = len(devices)
-        if cfg.dist.num_devices not in (0, n):
-            raise ValueError(f"dist.num_devices={cfg.dist.num_devices} "
-                             f"but {n} devices given")
+    n = dist.resolve_num_devices(cfg, device)
     check_fit_supported(cfg, n)
     if n > 1 and not dist.is_initialized():
-        return _fit_ranks(cfg, device, devices, backend, n)
+        out = dist.launch(fit_rank, cfg, dist.rank_devices(device, n),
+                          dist.default_backend(device))[0]
+        return restore_final(cfg, device, out["metrics"], out["ckpt_path"])
     has_val = cfg.data.val_fraction > 0 or bool(cfg.data.val_path)
     dataset = build_dataset(cfg, split="train" if has_val else "all")
     eval_ds = build_dataset(cfg, split="val") if has_val else dataset
@@ -149,27 +141,28 @@ def fit(cfg: Config, device: torch.device, *,
     return train_on(cfg, state, dataset, eval_ds)
 
 
-def _fit_rank(cfg: Config, device: torch.device) -> Dict[str, Any]:
+def fit_rank(cfg: Config, device: torch.device) -> Dict[str, Any]:
+    """fit on this rank of a launched group (``dist.launch``'s target);
+    returns what a rank sends back: its metrics and the path of the final
+    checkpoint."""
     out = fit(cfg, device)
     return {"metrics": out["metrics"], "ckpt_path": out["ckpt_path"]}
 
 
-def _fit_ranks(cfg: Config, device: torch.device,
-               devices: Optional[Sequence[torch.device]],
-               backend: Optional[str], n: int) -> Dict[str, Any]:
-    """fit on n launched ranks; the state and model of rank 0's final
-    checkpoint, restored on ``device``."""
-    out = dist.launch(_fit_rank, cfg,
-                      devices or dist.rank_devices(device, n),
-                      backend or dist.default_backend(device))[0]
+def restore_final(cfg: Config, device: torch.device,
+                  metrics: Dict[str, float], ckpt_path: Optional[str]
+                  ) -> Dict[str, Any]:
+    """What fit returns, for launched ranks that returned ``metrics`` and
+    the final checkpoint ``ckpt_path``: the state and model of that
+    checkpoint, restored on ``device`` (a fresh state when None)."""
     state = create_state(cfg, device)
-    if out["ckpt_path"] is not None:
-        _, state_dict, training = checkpoint.load_training(out["ckpt_path"])
+    if ckpt_path is not None:
+        _, state_dict, training = checkpoint.load_training(ckpt_path)
         state.model.load_state_dict(state_dict, strict=True)
         state.optimizer.load_state_dict(training["optimizer"])
         state.step = int(training["step"])
-    return {"state": state, "model": state.model, "metrics": out["metrics"],
-            "ckpt_dir": cfg.train.ckpt_dir, "ckpt_path": out["ckpt_path"]}
+    return {"state": state, "model": state.model, "metrics": metrics,
+            "ckpt_dir": cfg.train.ckpt_dir, "ckpt_path": ckpt_path}
 
 
 def _check_cadence(cfg: Config) -> int:

@@ -28,9 +28,12 @@ hosts) is refused: ROADMAP.md queue A, item 8g.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import os
+import signal
 import tempfile
+import threading
 from typing import Any, Callable, Dict, List, Sequence, Union
 
 import torch
@@ -256,6 +259,31 @@ def _rank_main(rank_: int, world_: int, devices: Sequence[str], backend: str,
         tdist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def _forwarding_sigterm(pids: Sequence[int]):
+    """While open, a SIGTERM to this process is sent on to ``pids``: a
+    scheduler's preemption signal goes to the process it started, and the
+    ranks act on it (``train.save_on_signal``: every rank checkpoints the
+    same step and returns). Only from the main thread, where Python
+    allows signal handlers."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def forward(signum, frame):
+        for pid in pids:
+            try:
+                os.kill(pid, signum)
+            except ProcessLookupError:
+                pass
+
+    previous = signal.signal(signal.SIGTERM, forward)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+
+
 def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
            *args) -> List[Any]:
     """Run ``fn(cfg, device, *args)`` in ``len(devices)`` new processes,
@@ -270,7 +298,8 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
     threads and this process's cuDNN and TF32 settings. For
     ranks on CUDA the kernels are built here first, once rather than by
     every rank, and this process's cached blocks go back to the card. A
-    rank that raises stops the others, and the error is raised here."""
+    SIGTERM to this process goes on to the ranks. A rank that raises
+    stops the others, and the error is raised here."""
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if n < 2:
@@ -290,14 +319,24 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="rppt_dist_") as workdir:
         torch.save((fn, cfg, args), os.path.join(workdir, "payload.pt"))
-        torch.multiprocessing.start_processes(
+        ranks = torch.multiprocessing.start_processes(
             _rank_main, args=(n, [str(d) for d in devices], backend,
                               f"file://{workdir}/rendezvous", workdir, threads,
                               _backend_flags()),
-            nprocs=n, join=True, start_method="spawn")
+            nprocs=n, join=False, start_method="spawn")
+        with _forwarding_sigterm([p.pid for p in ranks.processes]):
+            while not ranks.join():
+                pass
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
                 for r in range(n)]
+
+
+def run_each(calls: Sequence[tuple], device: Device) -> List[Any]:
+    """``fn(cfg, device, *args)`` for each ``(fn, cfg, args)`` of
+    ``calls``, in order: several rank targets in one ``launch(run_each,
+    calls, ...)``, which starts the processes once."""
+    return [fn(cfg, device, *args) for fn, cfg, args in calls]
 
 
 # ---------------------------------------------------------------------------

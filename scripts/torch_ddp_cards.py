@@ -11,7 +11,8 @@ CPU): chip_smoke.py's ``phase_ddp_pr3`` with one rank per device (three
 SGD steps against one process: losses, the update, running statistics,
 replicas bit for bit, launches per rank). pr1: ``api.train`` and
 ``api.evaluate`` at dist.num_devices=N against N=1 (losses within 1e-4,
-the evaluation within 1e-5). Fails on the first disagreement."""
+the evaluation within 1e-5), the state ``api.train`` returns equal to
+its final checkpoint, on the device. Fails on the first disagreement."""
 
 import sys
 import tempfile
@@ -27,6 +28,7 @@ import chip_smoke as cs  # noqa: E402
 def main() -> int:
     import rgb_proprioceptive_pose_estimator_tpu_torch as rppt
     from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
 
     kind, n = sys.argv[1], int(sys.argv[2])
     dev = torch.device(kind)
@@ -59,6 +61,14 @@ def main() -> int:
             t = time.perf_counter()
             out = rppt.train(cfg, device=dev)
             report = rppt.evaluate(cfg, device=dev)
+            saved = checkpoint.load(out["ckpt_path"])[1]
+            model = out["model"].state_dict()
+            cs.check(out["state"].step == 8 and sorted(model) == sorted(saved)
+                     and all(model[k].device.type == kind
+                             and torch.equal(model[k].cpu(), v)
+                             for k, v in saved.items()),
+                     f"pr1 at {k}: the returned state is not the final "
+                     "checkpoint's on the device")
             res[k] = (out["metrics"], report)
             print(f"pr1 api.train and api.evaluate at dist.num_devices={k} "
                   f"on {kind}: {time.perf_counter() - t:.2f} s; loss "

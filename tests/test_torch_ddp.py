@@ -17,6 +17,7 @@ so the comparison is well-conditioned at a small learning rate)."""
 
 import fcntl
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -44,6 +45,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
     HostPipeline,
     build_dataset,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
 from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import (
     check_fit_supported,
 )
@@ -136,37 +138,60 @@ def _batches(model_cfg, seed, n=STEPS):
     return out
 
 
-def _steps(cfg, variables, batches):
-    """run_steps on two launched ranks and in this process alone."""
-    sd = state_dict_from_jax(variables, cfg.model)
-    ranks = dist.launch(dist.run_steps, cfg, CPU2, "gloo", sd, batches)
-    one = dist.run_steps(cfg.override(**{"dist.num_devices": 1}), "cpu", sd,
-                         batches)
-    return {"ranks": ranks, "one": one}
-
-
-def _pr3_case(route):
-    """pr3's case: weights and batches from seeds at which no ReLU input of
-    the three steps lies within rounding of 0. (One that does takes the
+def _case(name="pr3", seed=64, **overrides):
+    """A step case: weights and batches from seeds at which no ReLU input
+    of the three steps lies within rounding of 0. (One that does takes the
     other side in another implementation or partition of the batch, and
     moves its BatchNorm channel's gradients by percents: at three of five
-    seed pairs tried, the JAX package's 1- and 2-device steps differ by
-    more than the tolerance themselves.)"""
-    jcfg, cfg = _cfgs(**{"model.bn_stats": route})
+    seed pairs tried for pr3, the JAX package's 1- and 2-device steps
+    differ by more than the tolerance themselves.)"""
+    jcfg, cfg = _cfgs(name, **overrides)
     variables = jax.tree.map(np.asarray, random_jax_variables(cfg.model,
-                                                              seed=64))
-    batches = _batches(cfg.model, seed=65)
-    return jcfg, cfg, variables, batches
+                                                              seed=seed))
+    return {"jcfg": jcfg, "cfg": cfg, "variables": variables,
+            "batches": _batches(cfg.model, seed=seed + 1)}
 
 
-@pytest.fixture(scope="module", params=ROUTES)
-def pr3_runs(request, tmp_path_factory):
-    route = request.param
-    jcfg, cfg, variables, batches = _pr3_case(route)
-    runs = _shared(tmp_path_factory, f"pr3_{route}",
-                   lambda: _steps(cfg, variables, batches))
-    return {"route": route, "jcfg": jcfg, "cfg": cfg,
-            "variables": variables, "batches": batches, **runs}
+def _step_runs():
+    """Each case's steps on two ranks, all in one launch (a launch's
+    processes take seconds to start), and in this process alone, here
+    while the ranks run. The remat case's ranks recompute every block in
+    the backward, BatchNorm all-reduces included; it is held against the
+    plain one-process step, which takes the same values."""
+    cases = {route: _case(**{"model.bn_stats": route}) for route in ROUTES}
+    cases["reduce, remat"] = _case(**{"model.bn_stats": "reduce",
+                                      "model.remat": True})
+    # two cameras, T = 2 through ResNet-18 and an LSTM, camera dropout 0.5
+    cases["pr5"] = _case("pr5", **{"model.temporal_frames": 2,
+                                   "model.image_features": 32,
+                                   "model.camera_dropout": 0.5})
+    for c in cases.values():
+        c["state_dict"] = state_dict_from_jax(c["variables"],
+                                              c["cfg"].model)
+    calls = [(dist.run_steps, c["cfg"], (c["state_dict"], c["batches"]))
+             for c in cases.values()]
+    with ThreadPoolExecutor(1) as pool:
+        launched = pool.submit(dist.launch, dist.run_each, calls, CPU2,
+                               "gloo")
+        one = {name: dist.run_steps(
+            c["cfg"].override(**{"dist.num_devices": 1}), "cpu",
+            c["state_dict"], c["batches"])
+            for name, c in cases.items() if name != "reduce, remat"}
+        ranks = launched.result()
+    one["reduce, remat"] = one["reduce"]
+    return {name: {**c, "name": name, "one": one[name],
+                   "ranks": [r[i] for r in ranks]}
+            for i, (name, c) in enumerate(cases.items())}
+
+
+@pytest.fixture(scope="module")
+def step_runs(tmp_path_factory):
+    return _shared(tmp_path_factory, "steps", _step_runs)
+
+
+@pytest.fixture(params=ROUTES + ["reduce, remat"])
+def pr3_runs(request, step_runs):
+    return step_runs[request.param]
 
 
 def _assert_params_close(got, want, what):
@@ -194,13 +219,15 @@ def test_two_ranks_match_one_process(pr3_runs):
                                        rtol=LOSS_RTOL)
     params = dict(PoseEstimator(pr3_runs["cfg"].model).named_parameters())
     want = {k: v for k, v in one["state_dict"].items() if k in params}
-    _assert_params_close(ranks[0]["state_dict"], want, pr3_runs["route"])
+    _assert_params_close(ranks[0]["state_dict"], want, pr3_runs["name"])
     # DDP keeps the replicas equal bit for bit
     for k, v in ranks[0]["state_dict"].items():
         assert torch.equal(v, ranks[1]["state_dict"][k]), k
 
 
-def test_two_ranks_match_jax_two_device_mesh(pr3_runs):
+@pytest.mark.parametrize("route", ROUTES)
+def test_two_ranks_match_jax_two_device_mesh(route, step_runs):
+    pr3_runs = step_runs[route]
     jcfg = pr3_runs["jcfg"]
     variables = pr3_runs["variables"]
     tx = jax_make_optimizer(jcfg.train)
@@ -226,7 +253,7 @@ def test_two_ranks_match_jax_two_device_mesh(pr3_runs):
     params = dict(PoseEstimator(pr3_runs["cfg"].model).named_parameters())
     _assert_params_close(got["state_dict"],
                          {k: v for k, v in want.items() if k in params},
-                         f"{pr3_runs['route']} against JAX")
+                         f"{route} against JAX")
 
 
 def test_two_ranks_gradients_before_the_update_match_one_process(pr3_runs):
@@ -239,7 +266,7 @@ def test_two_ranks_gradients_before_the_update_match_one_process(pr3_runs):
         assert sorted(got) == sorted(want)
         for k, w in want.items():
             err = _rel_err(got[k].numpy(), w.numpy())
-            assert err <= GRAD_REL, (pr3_runs["route"], k, err)
+            assert err <= GRAD_REL, (pr3_runs["name"], k, err)
 
 
 def test_running_stats_equal_on_ranks_and_the_global_batchs(pr3_runs):
@@ -252,21 +279,12 @@ def test_running_stats_equal_on_ranks_and_the_global_batchs(pr3_runs):
         assert _rel_err(r0[k].numpy(), want[k].numpy()) <= STATS_REL, k
 
 
-def test_pr5_like_step_with_camera_dropout_matches_one_process(
-        tmp_path_factory):
+def test_pr5_like_step_with_camera_dropout_matches_one_process(step_runs):
     """Two cameras, T = 2 through ResNet-18 and an LSTM, camera dropout
     0.5: each rank draws the global batch's masks and keeps its rows, so
-    the two ranks take the one-process steps. The seeds are pr3's, free of
-    ReLU ties here too (``_pr3_case``)."""
-    _, cfg = _cfgs("pr5", **{"model.temporal_frames": 2,
-                             "model.image_features": 32,
-                             "model.camera_dropout": 0.5})
-    variables = jax.tree.map(np.asarray, random_jax_variables(cfg.model,
-                                                              seed=64))
-    batches = _batches(cfg.model, seed=65)
-    runs = _shared(tmp_path_factory, "pr5",
-                   lambda: _steps(cfg, variables, batches))
-    one, (r0, r1) = runs["one"], runs["ranks"]
+    the two ranks take the one-process steps."""
+    runs = step_runs["pr5"]
+    cfg, one, (r0, r1) = runs["cfg"], runs["one"], runs["ranks"]
     for got, want in zip(r0["losses"], one["losses"]):
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
     params = dict(PoseEstimator(cfg.model).named_parameters())
@@ -387,18 +405,24 @@ def _fit_cfg(path, ckpt_dir, steps, **overrides):
 
 
 def _fit_runs(path, root):
-    straight = _fit_cfg(path, f"{root}/straight", 4)
+    """api.train at N=2, straight for 4 steps; cut at 2 and resumed, in
+    one launch of fit_rank (the ranks rebuild everything from the
+    checkpoint); api.train at N=1."""
     cut = _fit_cfg(path, f"{root}/resumed", 2)
-    out = {"straight": api.train(straight, device="cpu")}
-    out["cut"] = api.train(cut, device="cpu")
-    out["resumed"] = api.train(cut.override(**{"train.steps": 4}),
-                               device="cpu")
+    out = {"straight": api.train(_fit_cfg(path, f"{root}/straight", 4),
+                                 device="cpu")}
+    out["cut"], out["resumed"] = dist.launch(
+        dist.run_each, [(loop.fit_rank, cut, ()),
+                        (loop.fit_rank, cut.override(**{"train.steps": 4}),
+                         ())], CPU2, "gloo")[0]
     out["one"] = api.train(_fit_cfg(path, f"{root}/one", 4, **{
         "dist.num_devices": 1}), device="cpu")
-    return {k: {"metrics": v["metrics"], "ckpt_path": v["ckpt_path"],
-                "ckpt_dir": v["ckpt_dir"], "step": v["state"].step,
-                "state_dict": v["model"].state_dict()}
-            for k, v in out.items()}
+    for k in ("straight", "one"):
+        v = out[k]
+        out[k] = {"metrics": v["metrics"], "ckpt_path": v["ckpt_path"],
+                  "ckpt_dir": v["ckpt_dir"], "step": v["state"].step,
+                  "state_dict": v["model"].state_dict()}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -417,10 +441,12 @@ def _metric_rows(ckpt_dir):
 
 def test_fit_two_ranks_resume_equals_straight_and_rank0_writes(fits):
     s, r = fits["straight"], fits["resumed"]
-    assert s["step"] == r["step"] == 4
+    assert s["step"] == 4
+    assert fits["cut"]["ckpt_path"].endswith("step_00000002.pt")
     assert s["ckpt_path"].endswith("step_00000004.pt")
     _, sd_s, tr_s = checkpoint.load_training(s["ckpt_path"])
     _, sd_r, tr_r = checkpoint.load_training(r["ckpt_path"])
+    assert tr_s["step"] == tr_r["step"] == 4
     for k in sd_s:
         assert torch.equal(sd_s[k], sd_r[k]), k
         # the state returned is the final checkpoint's
@@ -465,6 +491,81 @@ def test_evaluate_two_ranks_equals_one(fits, dualcam_h5, tmp_path_factory):
     assert sorted(got) == sorted(want) and got["step"] == 4
     for k in ("loss", "pos_mae_cm", "rot_mae_deg"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+
+
+# a launching process that trains pr1 at dist.num_devices=2 on the CPU
+# for longer than any test waits, and prints what api.train returned
+SIGTERM_SCRIPT = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from rgb_proprioceptive_pose_estimator_tpu_torch import api
+from rgb_proprioceptive_pose_estimator_tpu_torch.config import preset
+out = api.train(preset("pr1").override(**json.loads(sys.argv[1])),
+                device="cpu")
+print(json.dumps({"metrics": out["metrics"], "ckpt_path": out["ckpt_path"],
+                  "step": out["state"].step}))
+"""
+
+
+def _train_until_sigterm(ckpt_dir):
+    """Start SIGTERM_SCRIPT, send SIGTERM to it (the process a user or a
+    scheduler started, not its ranks) once rank 0 has logged 3 steps, and
+    return its exit code, its last line and its standard error. Whatever
+    is left of its process group is killed."""
+    import json
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    over = {"data.synthetic_size": 64, "data.batch_size": BATCH,
+            "data.num_workers": 0, "train.steps": 1_000_000,
+            "train.log_every": 1, "train.eval_every": 0,
+            "train.ckpt_every": 0, "train.save_on_signal": True,
+            "train.ckpt_dir": ckpt_dir, "dist.num_devices": 2}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SIGTERM_SCRIPT, json.dumps(over)], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        metrics = os.path.join(ckpt_dir, "metrics.jsonl")
+        deadline = time.monotonic() + 120
+        while proc.poll() is None and time.monotonic() < deadline:
+            if os.path.exists(metrics):
+                with open(metrics) as f:
+                    if len(f.readlines()) >= 3:
+                        break
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return proc.returncode, (out.strip().splitlines() or [""])[-1], err
+
+
+def test_sigterm_to_the_launching_process_checkpoints_one_step(
+        tmp_path_factory):
+    """train.save_on_signal at N=2: the launcher passes SIGTERM on to the
+    ranks, which stop at one step, checkpoint it and return it."""
+    import json
+
+    ckpt_dir = str(tmp_path_factory.mktemp("ddp_sigterm") / "run")
+    rc, last, err = _shared(tmp_path_factory, "sigterm",
+                            lambda: _train_until_sigterm(ckpt_dir))
+    assert rc == 0, err[-4000:]
+    out = json.loads(last)
+    stop = out["metrics"]["preempted_at"]
+    assert 3 <= stop < 1_000_000 and out["step"] == stop
+    assert out["ckpt_path"].endswith(f"step_{int(stop):08d}.pt")
+    assert checkpoint.steps(os.path.dirname(out["ckpt_path"])) == [stop]
+    assert checkpoint.load_training(out["ckpt_path"])[2]["step"] == stop
+    rows = _metric_rows(os.path.dirname(out["ckpt_path"]))
+    assert [r["step"] for r in rows if "train/preempted_at" in r] == [stop]
 
 
 # ---------------------------------------------------------------------------
