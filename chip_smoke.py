@@ -75,17 +75,21 @@ Phases, one or more lines each, and the last line is the result:
    power limit, and ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
-result. It fails without CUDA. It imports nothing of JAX.
+result. It fails without CUDA. It imports nothing of JAX. Whether it
+passes or fails, no process it started is left when it exits.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -2160,5 +2164,40 @@ def main() -> int:
     return 0
 
 
+def stop_children() -> None:
+    """Stop every process this script started that is still there:
+    multiprocessing's resource tracker, which launching ranks starts (the
+    launch stops it, and a late finalizer may start it again), then any
+    other child, terminated, killed after 10 s, and reaped."""
+    dist = sys.modules.get(
+        "rgb_proprioceptive_pose_estimator_tpu_torch.parallel.dist")
+    if dist is None:             # the port never loaded: nothing launched
+        return
+    dist.stop_resource_tracker()
+    for pid in dist.child_processes():
+        cmd = "?"
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            os.kill(pid, signal.SIGTERM)
+            deadline = time.monotonic() + 10
+            while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+        except OSError:          # it ended and was reaped meanwhile
+            pass
+        print(f"stopped a process left at the end: {pid} {cmd.strip()}",
+              file=sys.stderr, flush=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except Exception:
+        traceback.print_exc()
+        rc = 1
+    stop_children()
+    sys.exit(rc)

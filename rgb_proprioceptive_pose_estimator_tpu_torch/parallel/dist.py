@@ -29,6 +29,7 @@ hosts) is refused: ROADMAP.md queue A, item 8g.
 from __future__ import annotations
 
 import contextlib
+import gc
 import inspect
 import os
 import signal
@@ -284,6 +285,39 @@ def _forwarding_sigterm(pids: Sequence[int]):
         signal.signal(signal.SIGTERM, previous)
 
 
+def stop_resource_tracker() -> None:
+    """Stop and reap multiprocessing's resource tracker, the process that
+    starting ranks with ``spawn`` starts beside them to unlink their
+    semaphores. Python 3.12.3 stops it only when its pipe closes at this
+    process's exit, so it outlives the launching program by a moment; the
+    next launch starts it anew. Unreachable semaphores are collected
+    first, as their finalizers would start it again."""
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+
+
+def child_processes() -> List[int]:
+    """Pids of this process's children still in the process table
+    (running, or exited and not yet reaped), read from /proc."""
+    me, pids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # "pid (comm) state ppid ...", where comm may hold spaces
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            pids.append(int(entry))
+    return pids
+
+
 def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
            *args) -> List[Any]:
     """Run ``fn(cfg, device, *args)`` in ``len(devices)`` new processes,
@@ -299,7 +333,8 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
     ranks on CUDA the kernels are built here first, once rather than by
     every rank, and this process's cached blocks go back to the card. A
     SIGTERM to this process goes on to the ranks. A rank that raises
-    stops the others, and the error is raised here."""
+    stops the others, and the error is raised here. No process of the
+    launch is left when it returns or raises."""
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if n < 2:
@@ -324,9 +359,19 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
                               f"file://{workdir}/rendezvous", workdir, threads,
                               _backend_flags()),
             nprocs=n, join=False, start_method="spawn")
-        with _forwarding_sigterm([p.pid for p in ranks.processes]):
-            while not ranks.join():
-                pass
+        error = None
+        try:
+            with _forwarding_sigterm([p.pid for p in ranks.processes]):
+                while not ranks.join():
+                    pass
+        except Exception as e:
+            # the message holds the rank's traceback; this process's
+            # frames would keep the ranks' queues alive past the stop
+            error = e.with_traceback(None)
+        del ranks
+        stop_resource_tracker()
+        if error is not None:
+            raise error
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
                 for r in range(n)]

@@ -568,6 +568,24 @@ def test_sigterm_to_the_launching_process_checkpoints_one_step(
     assert [r["step"] for r in rows if "train/preempted_at" in r] == [stop]
 
 
+@pytest.mark.parametrize("raises", [False, True],
+                         ids=["returns", "a rank raises"])
+def test_launch_leaves_no_process_behind(raises):
+    """Once launch returns or raises, the ranks are reaped and so is the
+    resource tracker that spawning them starts (Python 3.12.3 stops it
+    only at the launching process's exit, after that process ends)."""
+    before = set(dist.child_processes())
+    # barrier takes no arguments, so run_each's call of it raises
+    calls = [(dist.barrier, None, ())] if raises else []
+    if raises:
+        with pytest.raises(Exception, match="TypeError"):
+            dist.launch(dist.run_each, calls, ["cpu", "cpu"], "gloo")
+    else:
+        assert dist.launch(dist.run_each, calls, ["cpu", "cpu"],
+                           "gloo") == [[], []]
+    assert set(dist.child_processes()) <= before
+
+
 # ---------------------------------------------------------------------------
 # refusals and the device count
 # ---------------------------------------------------------------------------
