@@ -70,9 +70,24 @@ Phases, one or more lines each, and the last line is the result:
    both ranks' final models), and a resume with camera dropout at batch
    64 bit for bit; bn_stats="pallas" on 2 devices raises the reference's
    ValueError;
-12. a JSON line of per-kernel numbers (pr3's f32 sites; launches summed
-   over every main path, the ranks' included), the card's name and
-   power limit, and ``{"ok": true, "device": {...}}`` last.
+12. the training extras: pr5 at full width in bf16 with the preset's
+   batch of 1024 as 4 micro-batches of 256 (train.grad_accum), EMA 0.999
+   and 2 batches of BN recalibration, 8 updates on each BN route (p50/p90
+   per update, samples/s, busy time, idle share, peak memory, launches);
+   the accumulated update against one from the mean of the micro-batches'
+   gradients, the EMA against its formula, the recalibrated statistics
+   against the batches' own, and a resume from micro-step 6 bit for bit;
+   pr3 at full width in f32: model.freeze_backbone (no K2 backward),
+   train.init_from_torch from a seeded torchvision ResNet-18 .npz,
+   model.proprio_dropout, early stopping against the CPU, and
+   train.debug_nans;
+13. training across hosts (dist.multihost) on the card: two host
+   processes, one gloo rank each, pr3 against one process, global rank 0
+   writing and every host restoring the final checkpoint;
+14. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
+   sites; launches summed over every main path, the ranks' included),
+   the card's name and power limit, and ``{"ok": true, "device": {...}}``
+   last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It fails without CUDA. It imports nothing of JAX. Whether it
@@ -202,6 +217,32 @@ BF16_REL = 5e-2
 # sample (a sample at a threshold may fall on either side)
 EVAL_RTOL, EVAL_ROUNDED = 1e-3, 1e-3
 EVAL_SAMPLES = 256
+# the training extras: pr5 with the preset's batch of 1024 as micro-batches
+# of 256 accumulated 4 times, 8 updates a route, the EMA and 2 batches of
+# BN recalibration; a resume from a checkpoint at micro-step 6 (mid-way
+# through the second update) at batch 64
+PR5_MICRO, PR5_ACCUM, PR5_UPDATES = 256, 4, 8
+PR5_EMA, PR5_RECAL = 0.999, 2
+PR5_ACCUM_CUT, PR5_ACCUM_STEPS = 6, 8
+# updates timed with one synchronization an update, after a warm one
+PR5_TIMED_UPDATES = 4
+# the accumulated update against one update from the mean of the four
+# micro-gradients computed one by one: the L2 norm of their difference
+# over that of the update (deterministic cuDNN: the same sums, in the
+# same order); the EMA against its formula, relative to its largest
+# value (one rounding of each product and of the sum)
+ACCUM_UPDATE_REL, EMA_REL = 1e-5, 1e-6
+# recalibrated statistics against the per-batch statistics of each BN
+# input, computed in f64 from hooks, averaged: relative to each
+# statistic's largest value (f32 sums of up to 3.1 M bf16 values a
+# channel, and the momentum recovery scales their rounding by 10)
+RECAL_REL = 1e-3
+PR3_FREEZE_STEPS = 4
+# pr3's early stopping at full width, at a batch the CPU runs in seconds
+EARLY_BATCH, EARLY_STEPS, EARLY_LR = 16, 12, 1e-3
+# training across hosts on the one card: two host processes, one rank
+# each on cuda:0 over gloo, pr3 f32 at batch 128, DDP_STEPS SGD steps
+MULTIHOST_HOSTS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1305,7 +1346,8 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     checks the kernel launches of every step and eval forward against the
     model's BN sites, prints step time, images/s, peak memory and the
     device time by kernel group. Returns (launch counts of the run,
-    train_on's result, the steps' times)."""
+    train_on's result with the profiled device ms per step under
+    "busy_ms" when the profiler saw the device, the steps' times)."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
         HostPipeline,
     )
@@ -1410,6 +1452,7 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
               "measured)", flush=True)
     else:
         groups, busy_ms, top = prof
+        out["busy_ms"] = busy_ms
         print(f"profile train {label}: device busy {busy_ms:.4f} ms per "
               f"step, idle share {1 - busy_ms / p50:.3f} of the p50 step; ms "
               f"per step by kernel group {json.dumps(groups)}; group "
@@ -1560,13 +1603,25 @@ def _checkpoint_differences(path_a, path_b):
     _, sd_a, tr_a = checkpoint.load_training(path_a)
     _, sd_b, tr_b = checkpoint.load_training(path_b)
     opt_a, opt_b = tr_a["optimizer"]["inner"], tr_b["optimizer"]["inner"]
-    return {
+    out = {
         "model": sum(int((sd_a[k] != sd_b[k]).sum()) for k in sd_a),
         "optimizer": sum(int((opt_a["state"][i][k] != opt_b["state"][i][k])
                              .sum()) for i in opt_a["state"]
                          for k in opt_a["state"][i]),
         "count": int(tr_a["optimizer"]["count"] != tr_b["optimizer"]["count"]),
         "sampler": int(tr_a["pipeline"] != tr_b["pipeline"])}
+    if "ema" in tr_a or "ema" in tr_b:
+        out["ema"] = sum(int((v != tr_b["ema"][k]).sum())
+                         for k, v in tr_a["ema"].items())
+    acc_a = tr_a["optimizer"].get("accumulated")
+    acc_b = tr_b["optimizer"].get("accumulated")
+    if acc_a is not None or acc_b is not None:
+        out["accumulator"] = sum(int((a != b).sum())
+                                 for a, b in zip(acc_a, acc_b)
+                                 if a is not None)
+    out["micro-step"] = int(tr_a["optimizer"].get("mini_step", 0)
+                            != tr_b["optimizer"].get("mini_step", 0))
+    return out
 
 
 def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
@@ -2050,7 +2105,716 @@ def phase_ddp_refusal(rppt):
     check(False, "bn_stats='pallas' on 2 devices did not raise")
 
 
+# ---------------------------------------------------------------------------
+# the training extras (ROADMAP queue A, item 9) and training across hosts
+# (item 8g)
+# ---------------------------------------------------------------------------
+
+
+def _device_batches(dataset, batch, n, dev, first=0):
+    return [_to_device(dataset.get_batch(
+        np.arange((first + i) * batch, (first + i + 1) * batch),
+        augment=True, seed=first + i), dev) for i in range(n)]
+
+
+def _params(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def _l2(tensors):
+    return math.sqrt(sum(float((t.double() ** 2).sum()) for t in tensors))
+
+
+def check_accumulation(c, dataset, dev, smi):
+    """train.grad_accum against its definition, and the EMA against its
+    formula, on the card with deterministic cuDNN: PR5_ACCUM micro-steps
+    of a seeded state against one update, by a fresh one-step optimizer,
+    from the mean of the same micro-batches' gradients computed one by
+    one (with the same dropout generators); then ``ema = d * init + (1 -
+    d) * params``. SGD at a constant rate: its update is the gradient's,
+    so the check sees every element of it."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+        Optimizer,
+        dropout_generator,
+        forward_backward,
+        train_step,
+    )
+
+    c = c.override(**{"train.optimizer": "sgd", "train.lr": 1e-3,
+                      "train.lr_schedule": "constant",
+                      "train.warmup_steps": 0, "train.grad_clip": 0.0})
+    batches = _device_batches(dataset, PR5_MICRO, PR5_ACCUM, dev)
+    state = create_state(c, dev)
+    init = _params(state.model)
+    for b in batches:
+        train_step(state, b, c.train)
+    after = _params(state.model)
+    ref = create_state(c, dev)
+    grads = []
+    for i, b in enumerate(batches):
+        forward_backward(ref.model, b, c.train,
+                         dropout_generator(c.train.seed, i, dev))
+        grads.append({k: p.grad.clone()
+                      for k, p in ref.model.named_parameters()})
+    one = Optimizer(c.train.__class__(**{**c.train.__dict__,
+                                         "grad_accum": 1}),
+                    ref.model.parameters())
+    for k, p in ref.model.named_parameters():
+        p.grad = sum(g[k] for g in grads) / PR5_ACCUM
+    one.step()
+    want = _params(ref.model)
+    update = _l2(after[k] - init[k] for k in after)
+    diff = _l2(after[k] - want[k] for k in after)
+    d = c.train.ema_decay
+    ema_err = max(float((state.ema[k] - (d * init[k] + (1 - d) * after[k]))
+                        .abs().max() / after[k].abs().max().clamp_min(1e-30))
+                  for k in after)
+    print(f"extras pr5 grad_accum {PR5_ACCUM} x batch {PR5_MICRO} "
+          f"{c.model.dtype} (deterministic cuDNN, SGD lr 1e-3): the "
+          f"accumulated update against one update from the mean of the "
+          f"{PR5_ACCUM} micro-gradients: difference {diff / update:.3g} of "
+          f"the update's L2 norm {update:.4g} (limit {ACCUM_UPDATE_REL}); "
+          f"weights unchanged before the {PR5_ACCUM}th micro-step, "
+          f"optimizer count {state.optimizer.count}; EMA {d} against "
+          f"d*init + (1-d)*params: worst {ema_err:.3g} of a tensor's "
+          f"largest (limit {EMA_REL}) ({smi})", flush=True)
+    check(diff <= ACCUM_UPDATE_REL * update and update > 0,
+          "grad_accum: the accumulated update differs from one update from "
+          "the mean gradient")
+    check(state.optimizer.count == 1 and state.step == PR5_ACCUM,
+          f"grad_accum: count {state.optimizer.count}, step {state.step}")
+    check(ema_err <= EMA_REL, "the EMA differs from its formula")
+    return state
+
+
+def check_recalibration(state, c, dataset, dev, smi):
+    """recalibrate_batch_stats of the EMA weights on PR5_RECAL batches
+    against the statistics of each BatchNorm's input taken by a hook in
+    f64 (mean, unbiased variance) on the same train-mode forwards,
+    averaged over the batches; the model's own statistics are left as
+    they were."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        serving,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+        recal_generator,
+        recalibrate_batch_stats,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
+        BatchNormAct,
+    )
+
+    model = state.model
+    batches = _device_batches(dataset, PR5_MICRO, PR5_RECAL, dev,
+                              first=PR5_ACCUM)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with serving(model, state.ema):
+        got = recalibrate_batch_stats(model, batches, c.train.seed)
+        sums = {}
+
+        def hook(name):
+            def record(mod, args):
+                x = args[0].detach().double()
+                dims = [d for d in range(x.ndim) if d != 1]
+                n = x.numel() // x.shape[1]
+                mean = x.mean(dims)
+                var = x.var(dims, correction=1)
+                acc = sums.setdefault(name, [0, 0])
+                acc[0] = acc[0] + mean / PR5_RECAL
+                acc[1] = acc[1] + var / PR5_RECAL
+                check(n > 1, f"{name}: one value a channel")
+            return record
+
+        handles = [m.register_forward_pre_hook(hook(n))
+                   for n, m in model.named_modules()
+                   if isinstance(m, BatchNormAct)]
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        try:
+            with torch.no_grad():
+                model.train()
+                for i, b in enumerate(batches):
+                    model(b, generator=recal_generator(c.train.seed, i, dev))
+        finally:
+            for h in handles:
+                h.remove()
+            model.load_state_dict(saved)
+    worst, where = 0.0, ""
+    for name, (mean, var) in sums.items():
+        for key, want in ((f"{name}.running_mean", mean),
+                          (f"{name}.running_var", var)):
+            err = float((got[key].double() - want).abs().max()
+                        / want.abs().max().clamp_min(1e-30))
+            if err > worst:
+                worst, where = err, key
+    unchanged = all(torch.equal(v, before[k])
+                    for k, v in model.state_dict().items())
+    print(f"extras pr5 BN recalibration ({PR5_RECAL} batches of "
+          f"{PR5_MICRO}, the EMA weights, {len(sums)} BatchNorms): against "
+          f"the f64 statistics of each BatchNorm's input averaged over the "
+          f"batches, worst {worst:.3g} of a statistic's largest at {where} "
+          f"(limit {RECAL_REL}); the model's own statistics unchanged: "
+          f"{unchanged} ({smi})", flush=True)
+    check(len(sums) > 0 and len(got) == 2 * len(sums),
+          "recalibration: statistics missing")
+    check(worst <= RECAL_REL, "recalibrated statistics differ from the "
+                              "batches' statistics")
+    check(unchanged, "recalibration changed the model's statistics")
+
+
+def check_resume_mid_accumulation(fused, c, dataset, dev, ckpt_root, smi):
+    """With deterministic cuDNN at batch PR5_RESUME_BATCH: a straight run
+    of PR5_ACCUM_STEPS micro-steps that checkpoints at micro-step
+    PR5_ACCUM_CUT (mid-way through an update), then a run resumed from
+    that checkpoint in another directory: the two final checkpoints
+    (weights, recalibrated statistics, EMA, optimizer, sampler) equal bit
+    for bit. Returns the launch counts of both runs."""
+    import shutil
+
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    base = c.override(**{
+        "data.batch_size": PR5_RESUME_BATCH,
+        "train.steps": PR5_ACCUM_STEPS, "train.steps_per_call": 2,
+        "train.log_every": 2, "train.eval_every": 0,
+        "train.ckpt_every": PR5_ACCUM_CUT})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counts = []
+    try:
+        runs = {}
+        for name in ("straight", "resumed"):
+            cfg = base.override(**{"train.ckpt_dir":
+                                   f"{ckpt_root}/pr5_accum_{name}"})
+            if name == "resumed":
+                os.makedirs(cfg.train.ckpt_dir)
+                shutil.copy(checkpoint.step_path(
+                    runs["straight"][0].train.ckpt_dir, PR5_ACCUM_CUT),
+                    cfg.train.ckpt_dir)
+            _zero_counts(fused)
+            out = loop.train_on(cfg, create_state(cfg, dev), dataset,
+                                dataset)
+            torch.cuda.synchronize()
+            counts.append(_counts(fused))
+            runs[name] = (cfg, out)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cut = checkpoint.load_training(checkpoint.step_path(
+        runs["straight"][0].train.ckpt_dir, PR5_ACCUM_CUT))[2]["optimizer"]
+    differ = _checkpoint_differences(runs["resumed"][1]["ckpt_path"],
+                                     runs["straight"][1]["ckpt_path"])
+    losses = [runs[k][1]["metrics"]["loss"] for k in ("resumed", "straight")]
+    print(f"extras pr5 resume mid-accumulation (deterministic cuDNN, batch "
+          f"{PR5_RESUME_BATCH} x grad_accum {PR5_ACCUM}, EMA, BN "
+          f"recalibration at the end): checkpoint at micro-step "
+          f"{PR5_ACCUM_CUT} holds micro-step {cut['mini_step']} of update "
+          f"{cut['count'] + 1}; resumed to {PR5_ACCUM_STEPS}: loss "
+          f"{losses[0]!r} against {losses[1]!r} straight; elements that "
+          f"differ from the straight run's final state {differ} ({smi})",
+          flush=True)
+    check(cut["mini_step"] == PR5_ACCUM_CUT % PR5_ACCUM
+          and cut.get("accumulated") is not None,
+          "the mid-accumulation checkpoint lacks the accumulator")
+    check(losses[0] == losses[1] and not any(differ.values()),
+          "the run resumed mid-accumulation differs from the straight run")
+    return {k: sum(cnt[k] for cnt in counts) for k in KERNEL_COUNTERS}
+
+
+def phase_extras_pr5(rppt, fused, dev, smi, ckpt_root, dataset):
+    """pr5 at full width, bf16, the preset's batch of 1024 as PR5_ACCUM
+    micro-batches of PR5_MICRO, EMA PR5_EMA and PR5_RECAL batches of BN
+    recalibration before the eval and the final save: PR5_UPDATES updates
+    on each BN route (launches and peak memory from run_training; then
+    p50/p90 per update over PR5_TIMED_UPDATES more, synchronized once an
+    update as fit runs them, samples/s, busy time and idle share); then
+    the checks of the accumulated
+    update, the EMA, the recalibration and a resume mid-accumulation.
+    Returns {path: launch counts}."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    cfg = pr5_config(rppt).override(**{
+        "data.batch_size": PR5_MICRO, "train.grad_accum": PR5_ACCUM,
+        "train.ema_decay": PR5_EMA,
+        "train.ema_bn_recal_batches": PR5_RECAL})
+    steps = PR5_UPDATES * PR5_ACCUM
+    print(f"extras pr5: {cfg.model.dtype}, micro-batch {PR5_MICRO} x "
+          f"grad_accum {PR5_ACCUM} = {PR5_MICRO * PR5_ACCUM} samples an "
+          f"update, EMA {PR5_EMA}, BN recalibration {PR5_RECAL} batches, "
+          f"{PR5_UPDATES} updates ({steps} micro-steps) a route", flush=True)
+    launches = {}
+    for route in ("reduce", "pallas"):
+        c = cfg.override(**{"model.bn_stats": route})
+        label = f"pr5 {route} grad_accum"
+        torch.cuda.reset_peak_memory_stats(dev)
+        counts, out, times = run_training(
+            fused, train_cfg(c, f"{ckpt_root}/pr5_accum_{route}",
+                             steps=steps, eval_every=steps), label,
+            dataset, dev, smi)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches[f"train {label}"] = counts
+        # the run's final checkpoint (the profile below steps on)
+        _, final, training = checkpoint.load_training(out["ckpt_path"])
+        check(training["optimizer"]["count"] == PR5_UPDATES
+              and training["step"] == steps and "ema" in training,
+              f"{label}: {training['optimizer']['count']} updates in "
+              f"{training['step']} micro-steps")
+        # after the first call (builds, cuDNN plans): whole updates, each
+        # the sum of run_training's synchronized micro-steps
+        synced = [sum(times[i:i + PR5_ACCUM])
+                  for i in range(STEPS_PER_CALL, steps, PR5_ACCUM)]
+        # and as fit runs them: one synchronization an update
+        pipe = HostPipeline(dataset, c.data, device=dev, train=True)
+        updates = []
+        try:
+            for u in range(1 + PR5_TIMED_UPDATES):
+                t = time.perf_counter()
+                for _ in range(PR5_ACCUM):
+                    loop.train_step(out["state"], next(pipe), c.train)
+                torch.cuda.synchronize()
+                if u:
+                    updates.append((time.perf_counter() - t) * 1e3)
+        finally:
+            pipe.close()
+        p50, p90 = (float(v) for v in np.percentile(updates, [50, 90]))
+        s50 = float(np.percentile(synced, 50))
+        busy = out.get("busy_ms")
+        busy_text = ("device busy not measured" if busy is None else
+                     f"device busy {busy * PR5_ACCUM:.4f} ms per update, "
+                     f"idle share {1 - busy * PR5_ACCUM / p50:.3f}")
+        print(f"extras {label}: update of {PR5_ACCUM} micro-steps p50 "
+              f"{p50:.3f} ms p90 {p90:.3f} ms over {len(updates)} updates "
+              f"synchronized once each ({s50:.3f} ms p50 over "
+              f"{len(synced)} updates synchronized at every micro-step), "
+              f"{PR5_MICRO * PR5_ACCUM / p50 * 1e3:.1f} samples/s at p50; "
+              f"{busy_text}; peak memory {peak / 2**30:.2f} GiB; launches "
+              f"{counts} ({smi})", flush=True)
+        del out, final, training
+        torch.cuda.empty_cache()
+    c = cfg.override(**{"model.bn_stats": "reduce"})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _zero_counts(fused)
+        state = check_accumulation(c, dataset, dev, smi)
+        check_recalibration(state, c, dataset, dev, smi)
+        torch.cuda.synchronize()
+        launches["extras pr5 checks"] = _counts(fused)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del state
+    torch.cuda.empty_cache()
+    launches["extras pr5 resume"] = check_resume_mid_accumulation(
+        fused, c, dataset, dev, ckpt_root, smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _torchvision_resnet18(seed):
+    """A torchvision-layout ResNet-18 state_dict of seeded numpy arrays."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv_bn(conv, bn, o, i, k):
+        sd[f"{conv}.weight"] = rng.normal(0, 0.05, (o, i, k, k)).astype(
+            np.float32)
+        sd[f"{bn}.weight"] = rng.uniform(0.5, 1.5, o).astype(np.float32)
+        sd[f"{bn}.bias"] = rng.normal(0, 0.1, o).astype(np.float32)
+        sd[f"{bn}.running_mean"] = rng.normal(0, 0.1, o).astype(np.float32)
+        sd[f"{bn}.running_var"] = rng.uniform(0.5, 1.5, o).astype(np.float32)
+
+    conv_bn("conv1", "bn1", 64, 3, 7)
+    cin = 64
+    for s in range(1, 5):
+        w = 64 * 2 ** (s - 1)
+        for b in range(2):
+            t = f"layer{s}.{b}"
+            conv_bn(f"{t}.conv1", f"{t}.bn1", w, cin, 3)
+            conv_bn(f"{t}.conv2", f"{t}.bn2", w, w, 3)
+            if b == 0 and s > 1:
+                conv_bn(f"{t}.downsample.0", f"{t}.downsample.1", w, cin, 1)
+            cin = w
+    sd["fc.weight"] = rng.normal(0, 0.05, (1000, cin)).astype(np.float32)
+    sd["fc.bias"] = np.zeros(1000, np.float32)
+    return sd
+
+
+def _by_hand(model, sd):
+    """torchvision ResNet-18 weights copied into every camera encoder of
+    ``model``, each key spelled out here."""
+    for cam in model.cameras:
+        enc = getattr(model, f"encoder_{cam}")
+        pairs = [(enc.stem.conv, enc.stem.bn, "conv1", "bn1")]
+        for s in range(1, 5):
+            for b in range(2):
+                blk = getattr(enc, f"stage{s}_block{b}")
+                t = f"layer{s}.{b}"
+                pairs += [(blk.conv1.conv, blk.conv1.bn, f"{t}.conv1",
+                           f"{t}.bn1"),
+                          (blk.conv2.conv, blk.conv2.bn, f"{t}.conv2",
+                           f"{t}.bn2")]
+                if blk.downsample is not None:
+                    pairs.append((blk.downsample.conv, blk.downsample.bn,
+                                  f"{t}.downsample.0", f"{t}.downsample.1"))
+        with torch.no_grad():
+            for conv, bn, tc, tb in pairs:
+                conv.weight.copy_(torch.from_numpy(sd[f"{tc}.weight"]))
+                bn.weight.copy_(torch.from_numpy(sd[f"{tb}.weight"]))
+                bn.bias.copy_(torch.from_numpy(sd[f"{tb}.bias"]))
+                bn.running_mean.copy_(torch.from_numpy(
+                    sd[f"{tb}.running_mean"]))
+                bn.running_var.copy_(torch.from_numpy(
+                    sd[f"{tb}.running_var"]))
+
+
+def _early_stop(cfg, dataset, device):
+    """loop.train_on of ``cfg`` on ``device``; (its early_stopped_at, the
+    values of the early-stopping metric it logged)."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+
+    out = loop.train_on(cfg, create_state(cfg, device), dataset, dataset)
+    with open(os.path.join(cfg.train.ckpt_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    key = f"eval/{cfg.train.ckpt_best_metric or 'loss'}"
+    return (out["metrics"].get("early_stopped_at"),
+            [r[key] for r in rows if key in r])
+
+
+def phase_extras_pr3(rppt, fused, dev, smi, ckpt_root, dataset):
+    """pr3 at full width in f32, batch 128: model.freeze_backbone for
+    PR3_FREEZE_STEPS steps (encoders bit for bit unchanged, their running
+    statistics moved, no K2 backward launch: no gradient reaches them);
+    train.init_from_torch from a seeded torchvision ResNet-18 .npz (served
+    poses equal those of the same weights carried by hand);
+    model.proprio_dropout 0.1 (the identity in eval, its rate in
+    training); early stopping with an eval every step (the stop step the
+    CPU port finds); train.debug_nans on an injected NaN. Returns {path:
+    launch counts}."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.api import Predictor
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+        train_step,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models import fusion
+
+    cfg = rppt.preset("pr3").override(**{"model.dtype": "float32"})
+    launches = {}
+    batches = _device_batches(dataset, BATCH, PR3_FREEZE_STEPS, dev)
+
+    # freeze_backbone
+    c = cfg.override(**{"model.freeze_backbone": True})
+    state = create_state(c, dev)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    _zero_counts(fused)
+    for b in batches:
+        train_step(state, b, c.train)
+    torch.cuda.synchronize()
+    counts = _counts(fused)
+    launches["extras pr3 freeze_backbone"] = counts
+    after = state.model.state_dict()
+    enc = [k for k in after if k.startswith("encoder_")]
+    params = {k for k, _ in state.model.named_parameters()}
+    frozen_same = all(torch.equal(after[k], before[k]) for k in enc
+                      if k in params)
+    stats_moved = sum(not torch.equal(after[k], before[k]) for k in enc
+                      if k.endswith("running_mean"))
+    head_moved = sum(not torch.equal(after[k], before[k]) for k in params
+                     if not k.startswith("encoder_"))
+    sites, _ = bn_sites(state.model)
+    want = {"normalize_u8": PR3_FREEZE_STEPS,
+            "scale_bias_relu": sites * PR3_FREEZE_STEPS,
+            "scale_bias_relu_backward": 0, "channel_stats": 0}
+    print(f"extras pr3 freeze_backbone, {PR3_FREEZE_STEPS} steps at batch "
+          f"{BATCH}: encoder parameters bit for bit unchanged: "
+          f"{frozen_same}; running means moved in {stats_moved} encoder "
+          f"BatchNorms; {head_moved} trainable tensors moved; launches "
+          f"{counts} against {want} (no gradient reaches the encoder, so "
+          f"K2's backward does not run) ({smi})", flush=True)
+    check(frozen_same and stats_moved > 0 and head_moved > 0,
+          "freeze_backbone: frozen weights moved or statistics did not")
+    check(counts == want, "freeze_backbone: launches differ")
+    del state
+    torch.cuda.empty_cache()
+
+    # init_from_torch, served against the same weights carried by hand
+    sd = _torchvision_resnet18(11)
+    npz = f"{ckpt_root}/resnet18_torchvision.npz"
+    np.savez(npz, **sd)
+    c = cfg.override(**{"train.init_from_torch": npz})
+    state = create_state(c, dev)
+    loop.warm_start(c, state)
+    hand = create_state(c, dev)
+    _by_hand(hand.model, sd)
+    obs = dataset.get_batch(np.arange(8), augment=False)
+    _zero_counts(fused)
+    got = Predictor(c, state=state, device=dev)(obs)
+    torch.cuda.synchronize()
+    launches["extras pr3 init_from_torch"] = _counts(fused)
+    want = Predictor(c, model=hand.model)(obs)
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    print(f"extras pr3 init_from_torch (seeded torchvision ResNet-18 .npz, "
+          f"fc dropped): poses of 8 samples equal those of the same weights "
+          f"carried by hand bit for bit: {same}", flush=True)
+    check(same, "init_from_torch: served poses differ")
+    del state, hand
+
+    # proprio dropout: the identity in eval, its rate in training
+    c = cfg.override(**{"model.proprio_dropout": 0.1})
+    drop = create_state(c, dev)
+    plain = create_state(cfg, dev)
+    b = batches[0]
+    with torch.no_grad():
+        served = drop.model.eval()(b)
+        want = plain.model.eval()(b)
+        trained = drop.model.train()(
+            b, generator=torch.Generator(device=dev).manual_seed(1))
+    identity = all(torch.equal(g, w) for g, w in zip(served, want))
+    feats = c.model.proprio_features
+    y = fusion.proprio_dropout(
+        torch.ones((BATCH * 64, feats), device=dev), 0.1,
+        torch.Generator(device=dev).manual_seed(2))
+    share = float((y == 0).float().mean())
+    sigma = math.sqrt(0.1 * 0.9 / y.numel())
+    print(f"extras pr3 proprio_dropout 0.1: eval poses equal the model "
+          f"without it bit for bit: {identity}; zeroed share in training "
+          f"{share:.5f} over {y.numel()} features (0.1 within 3 sigma = "
+          f"{3 * sigma:.5f}); kept ones scaled by 1/(1-p): "
+          f"{bool(torch.all((y == 0) | (y == 1 / 0.9)))}; a train-mode "
+          f"forward is finite: "
+          f"{all(bool(torch.isfinite(t).all()) for t in trained)}",
+          flush=True)
+    check(identity and abs(share - 0.1) <= 3 * sigma
+          and bool(torch.all((y == 0) | (y == 1 / 0.9))),
+          "proprio_dropout: not the identity in eval or not its rate")
+    del drop, plain
+
+    # early stopping: the card's stop step is the CPU port's
+    c = cfg.override(**{
+        "data.batch_size": EARLY_BATCH, "train.optimizer": "sgd",
+        "train.lr": EARLY_LR, "train.lr_schedule": "constant",
+        "train.warmup_steps": 0, "train.steps": EARLY_STEPS,
+        "train.steps_per_call": 1, "train.log_every": 1,
+        "train.eval_every": 1, "train.eval_steps": 1, "train.ckpt_every": 0,
+        "train.early_stop_patience": 1})
+    small = MemoryDemos(c, 8 * EARLY_BATCH, seed=12)
+    stops = {}
+    for i, d in enumerate(("cpu", dev)):
+        _zero_counts(fused)
+        stops[str(d)] = _early_stop(c.override(**{
+            "train.ckpt_dir": f"{ckpt_root}/early_{i}"}), small,
+            torch.device(d))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launches["extras pr3 early stop"] = _counts(fused)
+    (got, got_l), (want, want_l) = stops[str(dev)], stops["cpu"]
+    print(f"extras pr3 early stopping (batch {EARLY_BATCH}, SGD lr "
+          f"{EARLY_LR}, eval every step, patience 1, metric "
+          f"{c.train.ckpt_best_metric or 'loss'}): stopped at {got} on "
+          f"the card, {want} on the CPU; metric {got_l} against {want_l}",
+          flush=True)
+    check(got is not None and got == want,
+          "early stopping: the card stops elsewhere than the CPU")
+
+    # debug_nans
+    c = cfg.override(**{"train.debug_nans": True})
+    state = create_state(c, dev)
+    bad = dict(batches[0], proprio=batches[0]["proprio"].clone())
+    bad["proprio"][3, 0] = float("nan")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    raised = ""
+    try:
+        train_step(state, bad, c.train)
+    except FloatingPointError as e:
+        raised = str(e)
+    unchanged = all(torch.equal(v, before[k])
+                    for k, v in state.model.state_dict().items()
+                    if not k.endswith(("running_mean", "running_var")))
+    print(f"extras pr3 debug_nans: a NaN in one proprio value raised "
+          f"FloatingPointError: {raised!r}; weights unchanged: {unchanged}",
+          flush=True)
+    check(bool(raised) and unchanged, "debug_nans did not stop the step")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _multihost_rank(cfg, device):
+    """One global rank of phase_multihost: fit_rank on the pr3 in-memory
+    dataset (the card's host has no h5py), with its launches counted."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
+
+    dataset = MemoryDemos(cfg, DATASET_BATCHES * cfg.data.batch_size, seed=4)
+    loop.build_dataset = lambda c, split="all": dataset
+    _zero_counts(fused)
+    out = loop.fit_rank(cfg, device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return {**out, "launches": _counts(fused)}
+
+
+def _multihost_host(cfg_dict, out_path, devices, backend, visible):
+    """One host of phase_multihost: with ``visible`` as its
+    CUDA_VISIBLE_DEVICES (a host's own cards), ``dist.launch_host`` of a
+    rank on each of ``devices`` over ``backend``, then the final
+    checkpoint restored here, as ``api.train`` returns it on every
+    host."""
+    if visible is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.from_dict(cfg_dict)
+    ranks = dist.launch_host(_multihost_rank, cfg, devices, backend)
+    out = loop.restore_final(cfg, torch.device(devices[0]),
+                             ranks[0]["metrics"], ranks[0]["ckpt_path"])
+    torch.save({"ranks": ranks, "state_dict": {
+        k: v.detach().cpu() for k, v in out["model"].state_dict().items()}},
+        out_path)
+
+
+def phase_multihost(rppt, fused, dev, smi, ckpt_root, dataset, hosts=None,
+                    backend="gloo", **overrides):
+    """dist.multihost: host processes (dist.process_id 0, 1, .. of
+    num_processes, a coordinator on 127.0.0.1), each launching a rank on
+    each of its devices over ``backend``; ``hosts`` lists each host's
+    (devices, CUDA_VISIBLE_DEVICES or None), by default MULTIHOST_HOSTS
+    hosts of one rank on ``dev`` over gloo (NCCL refuses two ranks on one
+    card). The ranks train pr3 f32 at batch 128 (dotted ``overrides`` on
+    top) on ``dataset``, which each rank makes anew (DATASET_BATCHES
+    batches from seed 4) for DDP_STEPS SGD steps with one eval, held
+    against one process on ``dev`` under the data-parallel tolerances of
+    phase_ddp_pr3. Global rank 0 alone writes; every host restores the
+    final checkpoint. Returns the ranks' launch counts, summed."""
+    import socket
+
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = rppt.preset("pr3").override(**{
+        "model.dtype": "float32", "train.optimizer": "sgd",
+        "train.lr": DDP_LR, "train.grad_clip": 0.0,
+        "train.lr_schedule": "constant", "train.warmup_steps": 0,
+        "train.steps": DDP_STEPS, "train.steps_per_call": 1,
+        "train.log_every": 1, "train.eval_every": DDP_STEPS,
+        "train.eval_steps": EVAL_BATCHES, "train.ckpt_every": 0,
+        **overrides})
+    rank_dev = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    hosts = hosts or [([str(rank_dev)], None)] * MULTIHOST_HOSTS
+    mh_dir = f"{ckpt_root}/multihost"
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = []
+    t = time.perf_counter()
+    for p, (devices, visible) in enumerate(hosts):
+        cfg = base.override(**{
+            "train.ckpt_dir": mh_dir, "dist.multihost": True,
+            "dist.num_devices": 0, "dist.num_processes": len(hosts),
+            "dist.process_id": p, "dist.coordinator": f"127.0.0.1:{port}"})
+        proc = ctx.Process(target=_multihost_host,
+                           args=(cfg.to_dict(), f"{ckpt_root}/host{p}.pt",
+                                 devices, backend, visible))
+        proc.start()
+        procs.append(proc)
+    try:
+        for proc in procs:
+            proc.join(timeout=600)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        dist.stop_resource_tracker()
+    t_hosts = time.perf_counter() - t
+    check(all(proc.exitcode == 0 for proc in procs),
+          f"multihost: host exit codes {[p.exitcode for p in procs]}")
+    results = [torch.load(f"{ckpt_root}/host{p}.pt", weights_only=False)
+               for p in range(len(hosts))]
+    one_cfg = base.override(**{"train.ckpt_dir": f"{ckpt_root}/mh_one",
+                               "dist.num_devices": 1})
+    one = loop.train_on(one_cfg, create_state(one_cfg, dev), dataset,
+                        dataset)
+    want = {k: v.detach().cpu() for k, v in one["model"].state_dict().items()}
+    init = {k: v.cpu() for k, v in create_state(one_cfg, dev)
+            .model.state_dict().items()}
+    path = results[0]["ranks"][0]["ckpt_path"]
+    _, ckpt_sd, _ = checkpoint.load_training(path)
+    restored_equal = all(torch.equal(r["state_dict"][k], v)
+                         for r in results for k, v in ckpt_sd.items())
+    paths = [r["ckpt_path"] for h in results for r in h["ranks"]]
+    files = sorted(os.listdir(mh_dir))
+
+    def rows(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    got_rows, want_rows = rows(mh_dir), rows(one_cfg.train.ckpt_dir)
+    logged = [r["step"] for r in got_rows if "train/loss" in r]
+    loss_rel = max(abs(a["train/loss"] - b["train/loss"]) / abs(b["train/loss"])
+                   for a, b in zip(got_rows, want_rows) if "train/loss" in b)
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    moved = [k for k, v in want.items() if v.is_floating_point()
+             and k not in stats and not k.startswith("proprio.proprio_")]
+    diff = _l2(ckpt_sd[k] - want[k] for k in moved)
+    update = _l2(want[k] - init[k] for k in moved)
+    launches = [r["launches"] for h in results for r in h["ranks"]]
+    print(f"multihost pr3 f32: {len(hosts)} host processes with ranks on "
+          f"{[d for d, _ in hosts]} (CUDA_VISIBLE_DEVICES "
+          f"{[v for _, v in hosts]}) over {backend}, coordinator "
+          f"127.0.0.1:{port}, global batch {base.data.batch_size}, "
+          f"{DDP_STEPS} SGD steps at lr {DDP_LR} and one eval "
+          f"in {t_hosts:.2f} s with the launches; files written "
+          f"{files} (train steps logged {logged}); final checkpoint "
+          f"{paths}; losses against one process worst rel {loss_rel:.3g} "
+          f"(rtol {CMP_LOSS_RTOL}); parameter update differs by "
+          f"{diff / update:.3g} of its L2 norm (limit {DDP_UPDATE_REL}); "
+          f"both hosts' restored models equal the checkpoint bit for bit: "
+          f"{restored_equal}; launches per rank {launches} ({smi})",
+          flush=True)
+    check(paths == [checkpoint.step_path(mh_dir, DDP_STEPS)] * len(paths)
+          and files == ["metrics.jsonl",
+                        os.path.basename(paths[0])]
+          and logged == list(range(1, DDP_STEPS + 1)),
+          "multihost: not global rank 0 alone writing one checkpoint")
+    check(restored_equal, "multihost: a host restored another state")
+    check(loss_rel <= CMP_LOSS_RTOL and diff <= DDP_UPDATE_REL * update,
+          "multihost: the run differs from one process's")
+    sites, _ = bn_sites(one["model"])
+    # (the CPU's plain versions count no launch)
+    check(dev.type == "cpu" or all(
+        c["scale_bias_relu_backward"] == sites * DDP_STEPS
+        for c in launches), f"multihost: launches per rank {launches}")
+    return {k: sum(c[k] for c in launches) for k in KERNEL_COUNTERS}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2136,6 +2900,15 @@ def main() -> int:
         paths["ddp pr5 (2 ranks)"] = phase_ddp_pr5(rppt, dev, smi,
                                                    ckpt_root)
         phase_ddp_refusal(rppt)
+        # the training extras, then two hosts on the card
+        paths.update(phase_extras_pr5(
+            rppt, fused, dev, smi, ckpt_root,
+            MemoryDemos(pr5_config(rppt), PR5_SAMPLES, seed=9,
+                        episode=PR5_EPISODE)))
+        paths.update(phase_extras_pr3(rppt, fused, dev, smi, ckpt_root,
+                                      pr3_data))
+        paths["multihost pr3 (2 hosts)"] = phase_multihost(
+            rppt, fused, dev, smi, ckpt_root, pr3_data)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)
@@ -2156,6 +2929,8 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s.get("library_ms")})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

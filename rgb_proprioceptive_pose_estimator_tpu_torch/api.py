@@ -152,9 +152,8 @@ def evaluate(cfg: Config, ckpt_dir: Optional[str] = None, step: Step = None,
               dump_predictions=dump_predictions, drop_cameras=drop_cameras)
     if (n > 1 and not dist.is_initialized()
             and min(cfg.data.batch_size, len(dataset)) >= n):
-        return dist.launch(_evaluate_rank, cfg, dist.rank_devices(dev, n),
-                           dist.default_backend(dev), ckpt_dir, step, split,
-                           kw)[0]
+        return dist.launch_ranks(_evaluate_rank, cfg, dev, n, ckpt_dir,
+                                 step, split, kw)[0]
     model, got_step = load_model(cfg, ckpt_dir, step, dev)
     return evaluate_on(cfg, model, dataset, step=got_step, **kw)
 
@@ -310,7 +309,8 @@ class Predictor:
     (``load_model``: default the latest in train.ckpt_dir), as in the JAX
     package, unless one of these is given instead: ``model`` (a model
     already built, on its device), ``state`` (a training state,
-    engine/state.TrainState, whose model is served), ``state_dict`` (e.g.
+    engine/state.TrainState, whose model is served, with its EMA's
+    weights when it has one), ``state_dict`` (e.g.
     ``utils.convert.state_dict_from_jax``) or ``ckpt_path`` (one
     checkpoint file). ``device`` places what is loaded (CUDA by default).
 
@@ -344,6 +344,10 @@ class Predictor:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.cfg = cfg
+        if state is not None and state.ema is not None:
+            # the weights the state serves: its EMA's
+            state_dict, model = state.serving_state_dict(), None
+            device = device or next(state.model.parameters()).device
         if ckpt_path is not None:
             state_dict = checkpoint.load(ckpt_path)[1]
         if state_dict is not None:

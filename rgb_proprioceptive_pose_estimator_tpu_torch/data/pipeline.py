@@ -19,7 +19,9 @@ device) every rank draws the same global batch indices and builds only
 its contiguous slice of them with the global batch's seed, as the JAX
 package's processes do under multi-host: augmentation is drawn per sample,
 so rank r's rows are rows ``r*B/world`` to ``(r+1)*B/world`` of the
-global batch, bit for bit. The sharded device cache is not ported.
+global batch, bit for bit. Across hosts (``dist.multihost``) the global
+ranks are process-major, so a host's ranks hold together the reference's
+process slice. The sharded device cache is not ported.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def build_dataset(cfg: Config, split: str = "all"):
         if d.device_cache or d.augment_device:
             raise NotImplementedError(
                 "data.device_cache and data.augment_device: the port "
-                "augments on the host so far (ROADMAP.md queue A, item 9)")
+                "augments on the host so far (ROADMAP.md queue A, item 9b)")
         # the HDF5 store imports h5py where it opens a file; a host that
         # trains from memory never loads it
         from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (

@@ -10,20 +10,33 @@ state), the train and eval pipelines, the steps in calls of
 checks), log, eval and checkpoint cadences, the best-eval checkpoint
 (``train.ckpt_best_metric``), save on SIGTERM, and the final checkpoint.
 
+The reference's training extras: warm starts from another run
+(``train.init_from``) or from torchvision ResNet weights
+(``train.init_from_torch``), both only while ``ckpt_dir`` holds no
+checkpoint; the EMA of the parameters, which every eval and the best and
+final checkpoints serve, with BatchNorm statistics recalibrated for it
+(``train.ema_bn_recal_batches``) before each eval and the final save;
+``train.grad_accum`` (``train.steps`` and the cadences count micro-steps,
+as in the reference); early stopping on the eval metric
+(``train.early_stop_patience``); ``train.debug_nans``; and a profiler
+trace window (``train.profile_dir``).
+
 With ``dist.num_devices`` resolving to N > 1 (``parallel/dist.py``: 0
 means every visible card), ``fit`` launches N processes, one per device,
 each running ``fit`` as a rank of the group, and returns rank 0's result;
 a process that is already a rank (under ``torchrun``, say) runs as one.
-On a rank, ``train_on`` wraps the model in DistributedDataParallel, feeds
-it its slice of each global batch, averages the logged and eval metrics
-over the ranks, stops every rank at the same step on SIGTERM, and lets
-rank 0 alone write checkpoints and metrics. The global batch must divide
-by N; ``bn_stats="pallas"`` is refused on N > 1 as in the reference.
+Under ``dist.multihost`` each host's ``fit`` launches its own ranks of
+the one group (``dist.launch_host``) and returns the final checkpoint's
+state. On a rank, ``train_on`` wraps the model in DistributedDataParallel,
+feeds it its slice of each global batch, averages the logged and eval
+metrics over the ranks, stops every rank at the same step on SIGTERM or
+early stopping, and lets rank 0 alone write checkpoints and metrics. The
+global batch must divide by N; ``bn_stats="pallas"`` is refused on N > 1
+as in the reference.
 
 Not in the port yet, and refused rather than ignored
-(``check_fit_supported``): warm starts, early stopping, EMA and the other
-training extras (ROADMAP.md queue A, item 9); training across hosts
-(item 8g).
+(``check_fit_supported``): the device-resident data options (ROADMAP.md
+queue A, item 9b).
 """
 
 from __future__ import annotations
@@ -44,14 +57,21 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
 from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
     TrainState,
     create_state,
+    ema_of,
+    serving,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
     eval_step,
+    recalibrate_batch_stats,
     train_step,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
+    BatchNormAct,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils.metrics import MetricsLogger
+from rgb_proprioceptive_pose_estimator_tpu_torch.utils.prof import TraceWindow
 
 
 def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
@@ -80,11 +100,12 @@ def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
 
 def check_fit_supported(cfg: Config, n_dev: int = 1) -> None:
     """Raise, as the reference's fit does, for a global batch that
-    ``n_dev`` devices do not divide and for ``bn_stats="pallas"`` on more
-    than one (ValueError), and NotImplementedError, naming its ROADMAP.md
+    ``n_dev`` devices do not divide, for ``bn_stats="pallas"`` on more
+    than one, for early stopping without evals and for both warm starts
+    at once (ValueError), and NotImplementedError, naming its ROADMAP.md
     item, for each option of the JAX package's fit that the port lacks."""
     t, m, d = cfg.train, cfg.model, cfg.data
-    dist.check_supported(cfg)
+    dist.check_multihost(cfg)
     if d.batch_size % n_dev != 0:
         raise ValueError(
             f"global batch {d.batch_size} not divisible by {n_dev} devices")
@@ -97,19 +118,18 @@ def check_fit_supported(cfg: Config, n_dev: int = 1) -> None:
             f"{n_dev}-device mesh): pallas_call cannot partition the batch "
             "reduction. Use bn_stats='matmul' (SPMD-safe, MXU-routed) or "
             "'reduce' (default) on multi-device meshes.")
+    if t.early_stop_patience and not t.eval_every:
+        raise ValueError(
+            "train.early_stop_patience requires train.eval_every > 0 "
+            "(patience counts evaluations)")
+    if t.init_from and t.init_from_torch:
+        raise ValueError(
+            "train.init_from and train.init_from_torch are mutually "
+            "exclusive: a full-run warm start already carries its own "
+            "backbone weights")
     later = {
-        "train.init_from": (bool(t.init_from), 9),
-        "train.init_from_torch": (bool(t.init_from_torch), 9),
-        "train.early_stop_patience > 0": (t.early_stop_patience > 0, 9),
-        "train.profile_dir": (bool(t.profile_dir), 9),
-        "train.debug_nans": (t.debug_nans, 9),
-        "train.ema_decay > 0": (t.ema_decay > 0, 9),
-        "train.ema_bn_recal_batches > 0": (t.ema_bn_recal_batches > 0, 9),
-        "train.grad_accum > 1": (t.grad_accum > 1, 9),
-        "train.flat_optimizer": (t.flat_optimizer, 9),
-        "model.freeze_backbone": (m.freeze_backbone, 9),
-        "data.device_cache": (d.device_cache, 9),
-        "data.augment_device": (d.augment_device, 9),
+        "data.device_cache": (d.device_cache, "9b"),
+        "data.augment_device": (d.augment_device, "9b"),
     }
     for name, (used, item) in later.items():
         if used:
@@ -125,14 +145,14 @@ def fit(cfg: Config, device: torch.device) -> Dict[str, Any]:
 
     When dist.num_devices resolves to N > 1 and this process is not a rank
     yet, N ranks are launched, on cuda:0 .. N-1 over "nccl" (on the CPU N
-    times over "gloo"), and the result holds rank 0's metrics, and the
-    state and model of its final checkpoint on ``device``."""
+    times over "gloo"); under dist.multihost this host's ranks of the
+    group. The result holds the metrics of this host's first rank, and
+    the state and model of the final checkpoint on ``device``."""
     device = torch.device(device)
     n = dist.resolve_num_devices(cfg, device)
     check_fit_supported(cfg, n)
     if n > 1 and not dist.is_initialized():
-        out = dist.launch(fit_rank, cfg, dist.rank_devices(device, n),
-                          dist.default_backend(device))[0]
+        out = dist.launch_ranks(fit_rank, cfg, device, n)[0]
         return restore_final(cfg, device, out["metrics"], out["ckpt_path"])
     has_val = cfg.data.val_fraction > 0 or bool(cfg.data.val_path)
     dataset = build_dataset(cfg, split="train" if has_val else "all")
@@ -149,6 +169,28 @@ def fit_rank(cfg: Config, device: torch.device) -> Dict[str, Any]:
     return {"metrics": out["metrics"], "ckpt_path": out["ckpt_path"]}
 
 
+def restore_training(state: TrainState, path: str, ema_on: bool
+                     ) -> Dict[str, Any]:
+    """Load the checkpoint at ``path`` into ``state``: model, optimizer,
+    step and EMA, by the reference's rule for an EMA switched on or off
+    since the checkpoint was written (on: one the checkpoint lacks starts
+    at its parameters; off: the checkpoint's is dropped). Returns the
+    checkpoint's training state."""
+    _, state_dict, training = checkpoint.load_training(path)
+    state.model.load_state_dict(state_dict, strict=True)
+    state.optimizer.load_state_dict(training["optimizer"])
+    state.step = int(training["step"])
+    ema = training.get("ema")
+    if not ema_on:
+        state.ema = None
+    elif ema is None:
+        state.ema = ema_of(state.model)
+    else:
+        state.ema = {k: v.to(state.model.pose_out.weight.device)
+                     for k, v in ema.items()}
+    return training
+
+
 def restore_final(cfg: Config, device: torch.device,
                   metrics: Dict[str, float], ckpt_path: Optional[str]
                   ) -> Dict[str, Any]:
@@ -157,12 +199,55 @@ def restore_final(cfg: Config, device: torch.device,
     checkpoint, restored on ``device`` (a fresh state when None)."""
     state = create_state(cfg, device)
     if ckpt_path is not None:
-        _, state_dict, training = checkpoint.load_training(ckpt_path)
-        state.model.load_state_dict(state_dict, strict=True)
-        state.optimizer.load_state_dict(training["optimizer"])
-        state.step = int(training["step"])
+        restore_training(state, ckpt_path, cfg.train.ema_decay > 0)
     return {"state": state, "model": state.model, "metrics": metrics,
             "ckpt_dir": cfg.train.ckpt_dir, "ckpt_path": ckpt_path}
+
+
+def warm_start(cfg: Config, state: TrainState) -> None:
+    """train.init_from: the weights another run serves (its EMA's
+    parameters where it kept one, else its raw ones) and all its
+    buffers, BatchNorm and proprio statistics included, from the latest
+    checkpoint of that directory (or ``.../best``); the optimizer, step
+    and data order stay fresh. train.init_from_torch: torchvision ResNet
+    weights into every camera encoder. Either way the EMA restarts at the
+    imported weights."""
+    tcfg, model = cfg.train, state.model
+    if tcfg.init_from:
+        path, _ = checkpoint.resolve(tcfg.init_from)
+        _, weights = checkpoint.load(path)
+        target = model.state_dict()
+        missing = sorted(set(target) - set(weights))[:4]
+        extra = sorted(set(weights) - set(target))[:4]
+        if missing or extra:
+            raise ValueError(
+                f"train.init_from: checkpoint tree does not match the model "
+                f"(missing from checkpoint: {missing}; not in model: "
+                f"{extra}) -- the source run used a different model config")
+        for k, v in weights.items():
+            if v.shape != target[k].shape:
+                raise ValueError(
+                    f"train.init_from: {k} shape {tuple(v.shape)} in the "
+                    f"checkpoint vs {tuple(target[k].shape)} in the model "
+                    "-- the source run used a different model config")
+        model.load_state_dict(weights, strict=True)
+    else:
+        from rgb_proprioceptive_pose_estimator_tpu_torch.utils.torch_import import (
+            load_pretrained_backbone,
+            load_state_dict_file,
+        )
+
+        arch = cfg.model.backbone
+        if arch not in ("resnet18", "resnet34", "resnet50"):
+            raise ValueError(
+                f"train.init_from_torch: no torchvision import mapping for "
+                f"model.backbone={arch!r} (supported: resnet18/resnet34/"
+                "resnet50)")
+        sd = load_state_dict_file(tcfg.init_from_torch)
+        for cam in cfg.model.cameras:
+            load_pretrained_backbone(model, cam, sd, arch)
+    if state.ema is not None:
+        state.ema = ema_of(model)
 
 
 def _check_cadence(cfg: Config) -> int:
@@ -229,8 +314,8 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
 
     if cfg.model.use_proprio and cfg.model.proprio_normalize:
         # train-split obs-normalization statistics into the model buffers;
-        # a resumed run's checkpoint overwrites them below, so it keeps
-        # the statistics its weights were trained with
+        # a resumed run's checkpoint or a warm start overwrites them below,
+        # so the weights keep the statistics they were trained with
         mean, std = dataset.proprio_stats()
         with torch.no_grad():
             model.proprio.proprio_mean.copy_(torch.from_numpy(mean))
@@ -239,12 +324,14 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
     start_step = 0
     best_val = float("inf")
     ckpt_path: Optional[str] = None
+    if resume is None and (tcfg.init_from or tcfg.init_from_torch):
+        # only while this run has no checkpoint of its own: a preempted
+        # run resumes its own state
+        warm_start(cfg, state)
     if resume is not None:
         ckpt_path, _ = checkpoint.resolve(tcfg.ckpt_dir, resume)
-        _, state_dict, training = checkpoint.load_training(ckpt_path)
-        model.load_state_dict(state_dict, strict=True)
-        state.optimizer.load_state_dict(training["optimizer"])
-        state.step = start_step = int(training["step"])
+        training = restore_training(state, ckpt_path, tcfg.ema_decay > 0)
+        start_step = state.step
         best_dir = os.path.join(tcfg.ckpt_dir, checkpoint.BEST)
         if tcfg.ckpt_best_metric and checkpoint.steps(best_dir):
             # the best so far, so that a worse eval after the resume does
@@ -279,8 +366,14 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                            tb_dir=tcfg.ckpt_dir)
 
     def training_state(**extra) -> Dict[str, Any]:
-        return {"step": state.step, "optimizer": state.optimizer.state_dict(),
-                "pipeline": train_pipe.state_dict(), **extra}
+        # mid-accumulation under DDP the ranks' gradient sums differ: one
+        # file holds their mean (collective, so before rank 0 alone writes)
+        state.optimizer.average_accumulator()
+        out = {"step": state.step, "optimizer": state.optimizer.state_dict(),
+               "pipeline": train_pipe.state_dict(), **extra}
+        if state.ema is not None:
+            out["ema"] = state.ema
+        return out
 
     def save(step: int) -> str:
         # a step saved by an earlier run (an explicit-step resume re-walks
@@ -289,6 +382,26 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                                     model.state_dict(), training_state())
         dist.barrier()
         return path
+
+    def recalibrated() -> Optional[Dict[str, torch.Tensor]]:
+        """BatchNorm statistics for the served weights, from
+        train.ema_bn_recal_batches train-pipeline batches (consumed, as
+        in the reference), or None when it is off."""
+        if not (tcfg.ema_bn_recal_batches and has_stats):
+            return None
+        with serving(model, state.ema):
+            return recalibrate_batch_stats(
+                model, (next(train_pipe)
+                        for _ in range(tcfg.ema_bn_recal_batches)),
+                tcfg.seed)
+
+    # as the reference: whenever the model has statistics (BatchNorm's, or
+    # proprio normalization's, which a train-mode forward leaves as they
+    # are) recalibration runs, and consumes its batches
+    has_stats = (any(isinstance(m, BatchNormAct) for m in model.modules())
+                 or (cfg.model.use_proprio and cfg.model.proprio_normalize))
+    tracer = TraceWindow(tcfg.profile_dir, tcfg.profile_start,
+                         tcfg.profile_steps, device, rank)
 
     # save on SIGTERM (train.save_on_signal): finish the step in flight,
     # checkpoint it and return; only from the main thread, where Python
@@ -307,6 +420,15 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
     last_metrics: Dict[str, float] = {}
     last_saved: Optional[int] = None
     final_step = tcfg.steps
+    preempted = False
+    # early stopping: consecutive evals without a > min_delta improvement
+    # of the metric (train.ckpt_best_metric, else the eval loss); in-run
+    # state only, as in the reference
+    es_metric = tcfg.ckpt_best_metric or "loss"
+    es_best = float("inf")
+    es_stale = 0
+    stopped_at: Optional[int] = None
+    accum = max(tcfg.grad_accum, 1)
     log_anchor = start_step
     t_log = time.perf_counter()
     try:
@@ -314,6 +436,7 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
             for _ in range(spc):
                 m = train_step(state, next(train_pipe), tcfg)
             step1 = step_i + spc
+            tracer.on_step(step1)
             if step_i == start_step and tcfg.log_every > 1:
                 # keep the first call (kernel builds, cuDNN plans) out of
                 # the first throughput window
@@ -332,16 +455,18 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                     "images_per_sec": imgs / dt,
                     "images_per_sec_per_chip": imgs / dt / world,
                     "host_queue_depth": train_pipe.queue_depth(),
-                    "lr": float(schedule(step1)),
+                    "lr": float(schedule(step1 // accum)),
                 })
                 logger.log(step1, last_metrics, prefix="train/")
             if tcfg.eval_every and (step1 % tcfg.eval_every == 0
                                     or step1 == tcfg.steps):
                 eval_start = (step1 // tcfg.eval_every) * max(tcfg.eval_steps,
                                                               0)
-                em = evaluate_pipeline(model, eval_pipe, cfg,
-                                       max_batches=tcfg.eval_steps,
-                                       start=eval_start)
+                stats = recalibrated()
+                with serving(model, state.ema, stats):
+                    em = evaluate_pipeline(model, eval_pipe, cfg,
+                                           max_batches=tcfg.eval_steps,
+                                           start=eval_start)
                 logger.log(step1, em, prefix="eval/")
                 last_metrics.update({f"eval_{k}": v for k, v in em.items()})
                 if tcfg.ckpt_best_metric:
@@ -352,26 +477,58 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                             f"not in eval metrics {sorted(em)}")
                     if v < best_val:
                         best_val = v
+                        # with recalibration the best checkpoint ships the
+                        # statistics matched to the weights it serves
                         checkpoint.save_best(
-                            tcfg.ckpt_dir, step1, cfg, model.state_dict(),
+                            tcfg.ckpt_dir, step1, cfg,
+                            {**model.state_dict(), **(stats or {})},
                             training_state(best_val=float(v)))
                         dist.barrier()
+                if tcfg.early_stop_patience:
+                    v = em.get(es_metric)
+                    if v is None:
+                        raise KeyError(
+                            f"early-stop metric {es_metric!r} not in eval "
+                            f"metrics {sorted(em)}")
+                    if float(v) < es_best - tcfg.early_stop_min_delta:
+                        es_best, es_stale = float(v), 0
+                    else:
+                        es_stale += 1
+                        if es_stale >= tcfg.early_stop_patience:
+                            stopped_at = step1
                 # eval time is not train throughput
                 t_log = time.perf_counter()
                 log_anchor = step1
             if tcfg.ckpt_every and step1 % tcfg.ckpt_every == 0:
                 ckpt_path = save(step1)
                 last_saved = step1
+            if stopped_at is not None:
+                # the eval metrics are the ranks' mean: every rank stops
+                final_step = stopped_at
+                last_metrics["early_stopped_at"] = float(stopped_at)
+                break
             # every rank stops at the same step when any received it
             if dist.any_rank(preempt_signum is not None):
                 final_step = step1
+                preempted = True
                 last_metrics["preempted_at"] = float(step1)
                 logger.log(step1, {"preempted_at": float(step1)},
                            prefix="train/")
                 break
-        # nothing to save when a finished run is run again
-        if start_step < final_step and last_saved != final_step:
-            ckpt_path = save(final_step)
+        tracer.close()
+        # the final checkpoint serves BatchNorm statistics recalibrated for
+        # its weights, which the state keeps from here (not on preemption:
+        # that checkpoint is a resume point); nothing to save when a
+        # finished run is run again
+        if start_step < final_step:
+            stats = None if preempted else recalibrated()
+            if stats is not None:
+                with torch.no_grad():
+                    for k, v in model.state_dict().items():
+                        if k in stats:
+                            v.copy_(stats[k])
+            if stats is not None or last_saved != final_step:
+                ckpt_path = save(final_step)
         logger.close()
         train_pipe.close()
         eval_pipe.close()

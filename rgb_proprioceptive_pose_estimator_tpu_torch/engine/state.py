@@ -1,6 +1,7 @@
 """Training state (counterpart of the JAX package's ``engine/state.py``):
-the model, its optimizer, the step count, a ``torch.Generator``, and the
-model's data-parallel wrapper on a rank of a group.
+the model, its optimizer, the step count, a ``torch.Generator``, the EMA
+of the parameters (``train.ema_decay``), and the model's data-parallel
+wrapper on a rank of a group.
 
 The JAX package threads one immutable pytree through a compiled step; here
 the model and optimizer are updated in place by each step.
@@ -8,9 +9,10 @@ the model and optimizer are updated in place by each step.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -18,6 +20,7 @@ from torch import nn
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
 from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
     Optimizer,
+    make_optimizer,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
     BatchNormAct,
@@ -42,6 +45,45 @@ class TrainState:
     # the model in DistributedDataParallel on a rank of a group of more
     # than one (parallel/dist.data_parallel): the train step runs it
     ddp: Optional[nn.Module] = None
+    # EMA of the parameters, by name (train.ema_decay > 0), else None
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+    def serving_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The weights every evaluation consumer serves (the reference's
+        ``eval_variables``): the EMA's parameters when it is on, else the
+        raw ones, with the model's buffers."""
+        return {**self.model.state_dict(), **(self.ema or {})}
+
+
+def ema_of(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """An EMA that starts at ``model``'s parameters (copies)."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def serving(model: nn.Module, ema: Optional[Dict[str, torch.Tensor]],
+            stats: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Iterator[nn.Module]:
+    """Inside, ``model`` holds the EMA's parameters (when ``ema`` is not
+    None) and the BatchNorm running statistics ``stats`` (when given);
+    its own come back at the exit."""
+    swap = dict(ema or {})
+    swap.update(stats or {})
+    if not swap:
+        yield model
+        return
+    tensors = dict(model.named_parameters())
+    tensors.update(model.named_buffers())
+    saved = {k: tensors[k].detach().clone() for k in swap}
+    with torch.no_grad():
+        for k, v in swap.items():
+            tensors[k].copy_(v)
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for k, v in saved.items():
+                tensors[k].copy_(v)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -80,8 +122,10 @@ def create_state(cfg: Config, device: torch.device,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None
                  ) -> TrainState:
     """A fresh state on ``device``: weights from ``state_dict`` (strict) or
-    from the initializers with seed ``train.seed``, and an optimizer at
-    update 0."""
+    from the initializers with seed ``train.seed``, an optimizer at update
+    0 (``make_optimizer``: model.freeze_backbone takes the frozen
+    parameters out), and with train.ema_decay an EMA at the initial
+    parameters."""
     seed = cfg.train.seed
     model = PoseEstimator(cfg.model)
     if state_dict is None:
@@ -89,7 +133,7 @@ def create_state(cfg: Config, device: torch.device,
     else:
         model.load_state_dict(state_dict, strict=True)
     model.to(device)
-    return TrainState(model=model,
-                      optimizer=Optimizer(cfg.train, model.parameters()),
+    return TrainState(model=model, optimizer=make_optimizer(cfg, model),
                       step=0,
-                      generator=torch.Generator().manual_seed(seed ^ 0xA46))
+                      generator=torch.Generator().manual_seed(seed ^ 0xA46),
+                      ema=ema_of(model) if cfg.train.ema_decay > 0 else None)

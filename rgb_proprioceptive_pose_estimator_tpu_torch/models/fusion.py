@@ -26,8 +26,10 @@ then an LSTM whose last step is the camera's features ("lstm"). The head
 emits a quaternion or, with model.rot_rep="rot6d", the continuous 6D form
 that ``rot6d_to_quat`` turns into one. In training, model.camera_dropout
 zeroes cameras per sample (no rescale), drawn from the ``generator`` the
-train step passes. The ViT backbone and proprio dropout in training come
-in later slices (ROADMAP.md queue A) and raise here.
+train step passes; model.proprio_dropout drops proprio features as
+flax's ``nn.Dropout`` does (kept ones scaled by 1/(1-p)), from the same
+generator. Both are the identity in eval mode. The ViT backbone comes in
+a later slice (ROADMAP.md queue A, item 10) and raises here.
 """
 
 from __future__ import annotations
@@ -84,21 +86,30 @@ def check_supported(cfg: ModelConfig) -> None:
             "(ROADMAP.md queue A, item 10)")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for training options the port lacks (each
-    is the identity in eval mode)."""
-    if cfg.proprio_dropout > 0:
-        raise NotImplementedError(
-            "model.proprio_dropout > 0 in training: proprio dropout comes in "
-            "a later slice (ROADMAP.md queue A, item 9)")
-
-
 def draw_camera_keep(generator: torch.Generator, p: float, shape,
                      device: torch.device) -> torch.Tensor:
     """Camera dropout's keep mask: f32 of ``shape``, each entry 1 with
     probability 1 - p, drawn from ``generator`` (on ``device``)."""
     u = torch.rand(shape, generator=generator, device=device)
     return (u < 1.0 - p).float()
+
+
+def proprio_dropout(x: torch.Tensor, p: float,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate=p)`` in training: each entry kept with
+    probability 1 - p and scaled by 1/(1 - p), else 0. The mask is drawn
+    for the global batch from ``generator`` (on x's device) and this
+    rank's rows of it are kept."""
+    if generator is None:
+        raise ValueError(
+            "model.proprio_dropout in training draws its mask from a "
+            "torch.Generator (forward(batch, generator=...))")
+    b = x.shape[0]
+    first, rows = dist.rank() * b, dist.world() * b
+    u = torch.rand((rows,) + tuple(x.shape[1:]), generator=generator,
+                   device=x.device)[first:first + b]
+    keep = u < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def draw_forced_camera(generator: torch.Generator, live_in: torch.Tensor,
@@ -210,11 +221,10 @@ class PoseEstimator(nn.Module):
     def forward(self, batch: Dict[str, Any],
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``generator`` (on the model's device) draws camera dropout's
-        masks in training; nothing else reads it."""
+        """``generator`` (on the model's device) draws the camera and
+        proprio dropout masks in training, in that order; nothing else
+        reads it."""
         cfg = self.cfg
-        if self.training:
-            check_trainable(cfg)
         images = batch["images"] if self.cameras else {}
         present = [c for c in self.cameras if c in images]
         if self.cameras and not present and not cfg.use_proprio:
@@ -252,7 +262,10 @@ class PoseEstimator(nn.Module):
                 f = f * cam_mask[:, ci:ci + 1].to(f.dtype)
             feats.append(f)
         if cfg.use_proprio:
-            feats.append(self.proprio(batch["proprio"]))
+            pf = self.proprio(batch["proprio"])
+            if self.training and cfg.proprio_dropout > 0:
+                pf = proprio_dropout(pf, cfg.proprio_dropout, generator)
+            feats.append(pf)
         if not feats:
             raise ValueError("model has neither image nor proprio inputs")
 

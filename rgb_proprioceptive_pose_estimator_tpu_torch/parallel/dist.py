@@ -22,26 +22,39 @@ Backends: "nccl" when every rank has a card of its own, "gloo" on the CPU
 and for several ranks sharing one card (NCCL refuses that). The backend is
 always the caller's argument: nothing falls back from one to the other.
 
-``dist.multihost`` (the reference's ``jax.distributed.initialize`` across
-hosts) is refused: ROADMAP.md queue A, item 8g.
+Across hosts (``dist.multihost``, the reference's
+``jax.distributed.initialize``): each host runs one launcher
+(``launch_host``) with its ``dist.process_id`` p of
+``dist.num_processes`` P, which starts one rank per local device, L of
+them (every visible card; one process on the CPU). The launcher of host 0
+serves a ``TCPStore`` at ``dist.coordinator`` (``host:port``); every host
+checks there that all have L devices, and every rank joins the one group
+through it, as global rank ``p * L + local rank`` of ``P * L``. Global
+rank r's rows of a batch are then process p's contiguous slice, cut into
+its local devices. Global rank 0 writes the checkpoints, which every host
+reads back from ``train.ckpt_dir`` (a filesystem they share, as orbax
+assumes in the reference).
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import gc
 import inspect
 import os
 import signal
 import tempfile
 import threading
-from typing import Any, Callable, Dict, List, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as tdist
 
 BACKENDS = ("nccl", "gloo")
 Device = Union[str, torch.device]
+# how long a host waits for the others at the coordinator
+RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def is_initialized() -> bool:
@@ -57,22 +70,69 @@ def world() -> int:
     return tdist.get_world_size() if is_initialized() else 1
 
 
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for the reference's multi-host mode."""
-    if cfg.dist.multihost:
-        raise NotImplementedError(
-            "dist.multihost (coordinator, num_processes, process_id): "
-            "training across hosts is not in the port yet (ROADMAP.md "
-            "queue A, item 8g); one host runs one process per card")
+def check_multihost(cfg) -> None:
+    """Raise ValueError, naming the field, for a ``dist.multihost`` config
+    the launcher cannot run: a device count (the reference's refusal: the
+    group spans every device of every host), an empty or malformed
+    ``coordinator``, or a ``process_id`` outside ``[0, num_processes)``."""
+    d = cfg.dist
+    if not d.multihost:
+        return
+    if d.num_devices:
+        raise ValueError(
+            "dist.num_devices is single-process only; under multihost the "
+            "mesh must span all global devices (got "
+            f"num_devices={d.num_devices}, processes={d.num_processes})")
+    if d.num_processes < 1:
+        raise ValueError(f"dist.num_processes must be >= 1, got "
+                         f"{d.num_processes}")
+    if not 0 <= d.process_id < d.num_processes:
+        raise ValueError(
+            f"dist.process_id={d.process_id} is outside [0, "
+            f"dist.num_processes={d.num_processes})")
+    coordinator_address(cfg)
+
+
+def coordinator_address(cfg) -> Tuple[str, int]:
+    """(host, port) of ``dist.coordinator``."""
+    c = cfg.dist.coordinator
+    host, _, port = c.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(
+            f"dist.coordinator must be 'host:port' (where host 0 of the "
+            f"run listens) under dist.multihost, got {c!r}")
+    return host, int(port)
+
+
+def local_devices(cfg, device: Device) -> List[torch.device]:
+    """The devices of this host's ranks under dist.multihost: every
+    visible CUDA card, or the CPU once."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [torch.device("cpu")]
+    return rank_devices(device, resolve_local(device))
+
+
+def resolve_local(device: torch.device) -> int:
+    """Visible CUDA cards (raising when there is none)."""
+    if device.type != "cuda":
+        raise ValueError(f"data parallelism runs on cuda or cpu, not "
+                         f"{device.type}")
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible == 0:
+        raise RuntimeError("no CUDA card is visible; pass device='cpu' to "
+                           "run the plain versions on the CPU")
+    return visible
 
 
 def resolve_num_devices(cfg, device: Device) -> int:
     """The data-parallel width that ``cfg.dist.num_devices`` asks for on
     ``device``'s kind, as the reference's ``make_mesh``: 0 means every
     visible CUDA card (1 on the CPU, where N > 0 means N processes); a
-    count above the visible cards raises. Inside a process group the
-    width is the group's, which a nonzero count must equal."""
-    check_supported(cfg)
+    count above the visible cards raises. Under dist.multihost it is
+    every host's local devices together. Inside a process group the width
+    is the group's, which a nonzero count must equal."""
+    check_multihost(cfg)
     n = cfg.dist.num_devices
     if n < 0:
         raise ValueError(f"dist.num_devices must be >= 0, got {n}")
@@ -82,16 +142,12 @@ def resolve_num_devices(cfg, device: Device) -> int:
                 f"dist.num_devices={n}, but this process is a rank of a "
                 f"group of {world()}")
         return world()
+    if cfg.dist.multihost:
+        return cfg.dist.num_processes * len(local_devices(cfg, device))
     device = torch.device(device)
     if device.type == "cpu":
         return n or 1
-    if device.type != "cuda":
-        raise ValueError(f"data parallelism runs on cuda or cpu, not "
-                         f"{device.type}")
-    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if visible == 0:
-        raise RuntimeError("no CUDA card is visible; pass device='cpu' to "
-                           "run the plain versions on the CPU")
+    visible = resolve_local(device)
     if n > visible:
         raise ValueError(f"requested {n} devices, have {visible}")
     return n or visible
@@ -112,9 +168,10 @@ def default_backend(device: Device) -> str:
 
 
 def init(rank: int, world: int, device: Device, backend: str,
-         init_method: str) -> None:
+         init_method: Union[str, Tuple[str, int]]) -> None:
     """Join this process to the group as ``rank`` of ``world``, on
-    ``device`` (made the current CUDA device)."""
+    ``device`` (made the current CUDA device). ``init_method`` is a
+    torch URL, or the (host, port) of a multihost coordinator's store."""
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
@@ -126,8 +183,14 @@ def init(rank: int, world: int, device: Device, backend: str,
         torch.cuda.set_device(device)
     if backend == "nccl":
         options["device_id"] = device       # binds the rank to its card
-    tdist.init_process_group(backend, init_method=init_method, rank=rank,
-                             world_size=world, **options)
+    if isinstance(init_method, str):
+        options["init_method"] = init_method
+    else:
+        host, port = init_method
+        options["store"] = tdist.PrefixStore("group", tdist.TCPStore(
+            host, port, is_master=False, timeout=RENDEZVOUS_TIMEOUT))
+    tdist.init_process_group(backend, rank=rank, world_size=world,
+                             **options)
 
 
 def _comm_device() -> torch.device:
@@ -243,18 +306,18 @@ def _set_backend_flags(flags: Dict[str, bool]) -> None:
     b.cuda.matmul.allow_tf32 = flags["matmul_tf32"]
 
 
-def _rank_main(rank_: int, world_: int, devices: Sequence[str], backend: str,
-               init_method: str, workdir: str, threads: int,
+def _rank_main(local: int, first: int, world_: int, devices: Sequence[str],
+               backend: str, init_method, workdir: str, threads: int,
                flags: Dict[str, bool]) -> None:
     torch.set_num_threads(threads)
     _set_backend_flags(flags)
-    device = torch.device(devices[rank_])
-    init(rank_, world_, device, backend, init_method)
+    device = torch.device(devices[local])
+    init(first + local, world_, device, backend, init_method)
     try:
         fn, cfg, args = torch.load(os.path.join(workdir, "payload.pt"),
                                    weights_only=False)
         out = fn(cfg, device, *args)
-        torch.save(out, os.path.join(workdir, f"rank{rank_}.pt"))
+        torch.save(out, os.path.join(workdir, f"rank{local}.pt"))
         barrier()
     finally:
         tdist.destroy_process_group()
@@ -291,12 +354,16 @@ def stop_resource_tracker() -> None:
     semaphores. Python 3.12.3 stops it only when its pipe closes at this
     process's exit, so it outlives the launching program by a moment; the
     next launch starts it anew. Unreachable semaphores are collected
-    first, as their finalizers would start it again."""
+    first, as their finalizers would start it again. A process that
+    inherited its parent's tracker (a spawned process, as each host of
+    ``launch_host`` may be) leaves it to that parent: 3.12.3 would wait
+    for a pid it does not have."""
     from multiprocessing import resource_tracker
 
     gc.collect()
-    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
-    if stop is not None:
+    tracker = resource_tracker._resource_tracker
+    stop = getattr(tracker, "_stop", None)
+    if stop is not None and getattr(tracker, "_pid", None) is not None:
         stop()
 
 
@@ -319,10 +386,13 @@ def child_processes() -> List[int]:
 
 
 def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
-           *args) -> List[Any]:
+           *args, first_rank: int = 0, world_size: Optional[int] = None,
+           init_method: Optional[Tuple[str, int]] = None) -> List[Any]:
     """Run ``fn(cfg, device, *args)`` in ``len(devices)`` new processes,
     rank r on ``devices[r]``, joined in a ``backend`` group; return each
-    rank's result, in rank order.
+    rank's result, in rank order. (``launch_host`` passes this host's
+    ``first_rank`` of a group of ``world_size`` and its coordinator's
+    ``init_method``.)
 
     ``fn`` must be importable by its module path (it is pickled by
     reference), and ``cfg``, ``args`` and the results are passed through
@@ -337,7 +407,7 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
     launch is left when it returns or raises."""
     devices = [torch.device(d) for d in devices]
     n = len(devices)
-    if n < 2:
+    if world_size is None and n < 2:
         raise ValueError(f"launch starts 2 or more ranks, got {n}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
@@ -355,9 +425,10 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
     with tempfile.TemporaryDirectory(prefix="rppt_dist_") as workdir:
         torch.save((fn, cfg, args), os.path.join(workdir, "payload.pt"))
         ranks = torch.multiprocessing.start_processes(
-            _rank_main, args=(n, [str(d) for d in devices], backend,
-                              f"file://{workdir}/rendezvous", workdir, threads,
-                              _backend_flags()),
+            _rank_main, args=(first_rank, world_size or n,
+                              [str(d) for d in devices], backend,
+                              init_method or f"file://{workdir}/rendezvous",
+                              workdir, threads, _backend_flags()),
             nprocs=n, join=False, start_method="spawn")
         error = None
         try:
@@ -375,6 +446,47 @@ def launch(fn: Callable, cfg, devices: Sequence[Device], backend: str,
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
                 for r in range(n)]
+
+
+def launch_host(fn: Callable, cfg, devices: Sequence[Device], backend: str,
+                *args) -> List[Any]:
+    """This host's part of a ``dist.multihost`` run: meet the other
+    hosts at ``dist.coordinator`` (host 0 serves the store there), check
+    that every host brings ``len(devices)`` = L devices, then ``launch``
+    ``fn`` on them as global ranks ``process_id * L ..`` of
+    ``num_processes * L``; returns this host's ranks' results. Host 0
+    keeps the store until every host's ranks have ended."""
+    check_multihost(cfg)
+    host, port = coordinator_address(cfg)
+    p, hosts, n = cfg.dist.process_id, cfg.dist.num_processes, len(devices)
+    store = tdist.PrefixStore("hosts", tdist.TCPStore(
+        host, port, is_master=p == 0, wait_for_workers=False,
+        timeout=RENDEZVOUS_TIMEOUT))
+    store.set(f"devices/{p}", str(n))
+    try:
+        counts = [int(store.get(f"devices/{q}")) for q in range(hosts)]
+        if len(set(counts)) > 1:
+            raise ValueError(
+                f"dist.multihost: the hosts' device counts differ ({counts} "
+                "by dist.process_id); every host must bring as many cards")
+        return launch(fn, cfg, devices, backend, *args, first_rank=p * n,
+                      world_size=hosts * n, init_method=(host, port))
+    finally:
+        store.set(f"done/{p}", "1")
+        if p == 0:
+            store.wait([f"done/{q}" for q in range(hosts)])
+
+
+def launch_ranks(fn: Callable, cfg, device: Device, n: int,
+                 *args) -> List[Any]:
+    """``fn`` on the ``n`` ranks that ``resolve_num_devices`` gave: this
+    host's part of a ``dist.multihost`` run (``launch_host``), else one
+    rank per card over NCCL, or ``n`` processes on the CPU over gloo."""
+    if cfg.dist.multihost:
+        return launch_host(fn, cfg, local_devices(cfg, device),
+                           default_backend(device), *args)
+    return launch(fn, cfg, rank_devices(device, n), default_backend(device),
+                  *args)
 
 
 def run_each(calls: Sequence[tuple], device: Device) -> List[Any]:

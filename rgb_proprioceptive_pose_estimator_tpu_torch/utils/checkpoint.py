@@ -1,8 +1,15 @@
 """Checkpoints of the port: one file, ``torch.save`` of
 ``{"config": cfg.to_dict(), "state_dict": ...}``, and for a training
 checkpoint also ``"training": {"step", "optimizer", "pipeline"}`` (the
-update count and the torch optimizer's state, and the sampler state of the
-train pipeline), with ``"best_val"`` in a best checkpoint.
+step count, the optimizer's state with its update count and, mid-way
+through a ``train.grad_accum`` update, the gradient sums and micro-step
+count, and the sampler state of the train pipeline), with ``"ema"`` (the
+parameters' EMA, ``train.ema_decay``) and ``"best_val"`` in a best
+checkpoint.
+
+``state_dict`` holds the raw parameters, which training resumes from;
+``load`` gives the weights a checkpoint serves (the reference's
+``eval_variables``): the EMA's parameters where there is one.
 
 ``fit`` writes ``<train.ckpt_dir>/step_<step>.pt`` and keeps the newest
 ``train.ckpt_keep``; with ``train.ckpt_best_metric`` it also keeps the
@@ -50,9 +57,12 @@ def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor],
 
 
 def load(path: str) -> Tuple[Config, Dict[str, torch.Tensor]]:
-    """(config, state_dict on the CPU) from a checkpoint written by save."""
-    cfg, state_dict, _ = load_training(path)
-    return cfg, state_dict
+    """(config, the state_dict it serves, on the CPU) from a checkpoint
+    written by save: its parameters are the EMA's where the checkpoint
+    has one."""
+    cfg, state_dict, training = load_training(path)
+    ema = (training or {}).get("ema")
+    return cfg, state_dict if ema is None else {**state_dict, **ema}
 
 
 def load_training(path: str

@@ -9,7 +9,12 @@ process.
 pr3 in f32 on both BN statistics routes (at 32 px and batch 16 on the
 CPU): chip_smoke.py's ``phase_ddp_pr3`` with one rank per device (three
 SGD steps against one process: losses, the update, running statistics,
-replicas bit for bit, launches per rank). pr1: ``api.train`` and
+replicas bit for bit, launches per rank). Then training across hosts
+(``dist.multihost``): two host processes of N/2 ranks each, on the
+cards CUDA_VISIBLE_DEVICES gives each (0..N/2-1 and N/2..N-1; on the CPU
+N/2 processes each), over NCCL (gloo on the CPU): chip_smoke.py's
+``phase_multihost``, pr3 against one process, global rank 0 writing and
+every host restoring the final checkpoint. pr1: ``api.train`` and
 ``api.evaluate`` at dist.num_devices=N against N=1 (losses within 1e-4,
 the evaluation within 1e-5), the state ``api.train`` returns equal to
 its final checkpoint, on the device. Fails on the first disagreement."""
@@ -49,6 +54,16 @@ def main() -> int:
                               seed=4)
         cs.phase_ddp_pr3(cfg, dev, smi, data, dist.rank_devices(dev, n),
                          dist.default_backend(dev))
+    half = n // 2
+    hosts = [([str(d) for d in dist.rank_devices(dev, half)],
+              None if kind == "cpu" else
+              ",".join(str(p * half + i) for i in range(half)))
+             for p in range(2)]
+    cfg = rppt.preset("pr3").override(**small)
+    with tempfile.TemporaryDirectory() as root:
+        cs.phase_multihost(rppt, None, dev, smi, root, cs.MemoryDemos(
+            cfg, cs.DATASET_BATCHES * cfg.data.batch_size, seed=4), hosts,
+            dist.default_backend(dev), **small)
     with tempfile.TemporaryDirectory() as root:
         res = {}
         for k in (1, n):

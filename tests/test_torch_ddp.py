@@ -603,11 +603,25 @@ def test_pallas_statistics_on_two_devices_raise_the_references_error():
 
 
 def test_multihost_is_refused_naming_its_roadmap_item():
-    _, cfg = _cfgs(**{"dist.multihost": True, "dist.num_processes": 2})
-    with pytest.raises(NotImplementedError, match="item 8g"):
+    """Multihost (item 8g) is in the port; what it refuses, with a
+    ValueError naming the field: a device count (the reference's
+    make_mesh refusal), an empty coordinator, and a process_id outside
+    [0, num_processes)."""
+    _, cfg = _cfgs(**{"dist.multihost": True, "dist.num_processes": 2,
+                      "dist.coordinator": "127.0.0.1:1"})
+    with pytest.raises(ValueError, match="dist.num_devices is "
+                                         "single-process only"):
         api.train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8g"):
-        dist.resolve_num_devices(cfg, "cpu")
+    cfg = cfg.override(**{"dist.num_devices": 0})
+    assert dist.resolve_num_devices(cfg, "cpu") == 2
+    for field, value, match in (
+            ("dist.coordinator", "", "dist.coordinator"),
+            ("dist.process_id", 2, "dist.process_id=2 is outside")):
+        bad = cfg.override(**{field: value})
+        with pytest.raises(ValueError, match=match):
+            dist.resolve_num_devices(bad, "cpu")
+        with pytest.raises(ValueError, match=match):
+            api.train(bad, device="cpu")
 
 
 def test_more_devices_than_visible_cards_raise(monkeypatch):

@@ -249,15 +249,32 @@ def test_state_dict_from_jax_is_strict(pr3, fault):
     {"model.backbone": "vit", "model.vit_pool": "cls"},
 ])
 def test_options_outside_the_slice_raise(overrides):
-    """The ViT backbone raises when the model is built, proprio dropout at
-    a train-mode forward (eval mode is the identity)."""
+    """The ViT backbone raises when the model is built. Proprio dropout,
+    in the port since item 9, raises at a train-mode forward without the
+    generator its mask is drawn from, draws one with it, and is the
+    identity in eval mode."""
     jcfg, cfg = _cfgs(**overrides)
     batch = example_batch(jcfg.model, batch_size=2)
     batch = {"images": {k: torch.from_numpy(v)
                         for k, v in batch["images"].items()},
              "proprio": torch.from_numpy(batch["proprio"])}
-    with pytest.raises(NotImplementedError):
-        PoseEstimator(cfg.model).train()(batch)
+    if cfg.model.backbone == "vit":
+        with pytest.raises(NotImplementedError, match="item 10"):
+            PoseEstimator(cfg.model)
+        return
+    model = PoseEstimator(cfg.model)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model.train()(batch)
+    with torch.no_grad():
+        drawn = model.train()(batch, generator=torch.Generator())
+        served = model.eval()(batch)
+        plain = PoseEstimator(cfg.model.__class__(**{
+            **cfg.model.__dict__, "proprio_dropout": 0.0}))
+        plain.load_state_dict(model.state_dict())
+        want = plain.eval()(batch)
+    assert all(torch.isfinite(t).all() for t in drawn)
+    for got, w in zip(served, want):
+        assert torch.equal(got, w)
 
 
 def test_quat_normalize_matches_jax_including_zero():

@@ -139,6 +139,9 @@ def test_port_imports_no_jax():
         "import rgb_proprioceptive_pose_estimator_tpu_torch.ops.pose_math\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.checkpoint\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.torch_import\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.prof\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.engine.state\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline\n"
