@@ -55,8 +55,9 @@ Phases, one or more lines each, and the last line is the result:
    per camera), serving at batch 1 and 8 and at batch 8 with
    robot0_eye_in_hand left out (a dead camera), f32 against the CPU and
    bf16; training on both BN routes (one f32 step against the CPU at
-   batch 4 with the same injected camera keep mask, then 16 bf16 steps at
-   batch 1024 with one eval pass); and a resume with camera dropout on,
+   batch 4 with the same injected camera keep mask; its bf16 training at
+   batch 1024 is 15's host augmentation route); and a resume with camera
+   dropout on,
    bit for bit with the straight run, dropout masks included;
 11. data parallelism (``parallel/dist.py``), two ranks sharing the card
    over gloo (NCCL refuses two ranks on one device; this checks the
@@ -84,7 +85,27 @@ Phases, one or more lines each, and the last line is the result:
 13. training across hosts (dist.multihost) on the card: two host
    processes, one gloo rank each, pr3 against one process, global rank 0
    writing and every host restoring the final checkpoint;
-14. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
+14. device augmentation (ops/image_augment_device.py, plain torch on the
+   card) at pr5's shape, (1024, 3, 144, 144, 3) uint8 a camera, both crop
+   modes, hue and the pose mirror on: against the CPU port on the same
+   draws, crop and flip bit for bit; its time beside the host
+   augmentation's for the same batch;
+15. the device-resident data path at pr5's size (16,384 samples, 1.6 GB
+   of frames): host augmentation, device cache + augment_device, and
+   device cache without augmentation, each at batch 1024 and 4 x 256 on
+   both BN routes (update p50/p90, busy time, idle share, peak memory,
+   launches: no normalize_u8 under augment_device); the cache route
+   equal to the host route without augmentation bit for bit, a resume
+   under augment_device bit for bit, evaluate_on with and without the
+   cache, and the upload budget's refusal;
+16. the sharded cache on two ranks sharing the card over gloo, each
+   holding its shard alone, pr3 against one process fed the same global
+   batches;
+17. the HTTP server (utils/serve.py) over the pr3 and pr5 checkpoints
+   above: answers equal to the in-process Predictor bit for bit, a pr5
+   session through a lost camera, a 413 and a 400, p50/p90 a request at
+   1 client and at 8 coalesced within 2 ms;
+18. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
    sites; launches summed over every main path, the ranks' included),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
@@ -218,10 +239,12 @@ BF16_REL = 5e-2
 EVAL_RTOL, EVAL_ROUNDED = 1e-3, 1e-3
 EVAL_SAMPLES = 256
 # the training extras: pr5 with the preset's batch of 1024 as micro-batches
-# of 256 accumulated 4 times, 8 updates a route, the EMA and 2 batches of
+# of 256 accumulated 4 times, 2 updates a route (one call; the steps at
+# this config are timed and profiled by phase_device_cache_pr5's host
+# augmentation route), the EMA and 2 batches of
 # BN recalibration; a resume from a checkpoint at micro-step 6 (mid-way
 # through the second update) at batch 64
-PR5_MICRO, PR5_ACCUM, PR5_UPDATES = 256, 4, 8
+PR5_MICRO, PR5_ACCUM, PR5_UPDATES = 256, 4, 2
 PR5_EMA, PR5_RECAL = 0.999, 2
 PR5_ACCUM_CUT, PR5_ACCUM_STEPS = 6, 8
 # updates timed with one synchronization an update, after a warm one
@@ -243,6 +266,33 @@ EARLY_BATCH, EARLY_STEPS, EARLY_LR = 16, 12, 1e-3
 # training across hosts on the one card: two host processes, one rank
 # each on cuda:0 over gloo, pr3 f32 at batch 128, DDP_STEPS SGD steps
 MULTIHOST_HOSTS = 2
+# the device-resident data path at pr5's size: device augmentation of
+# batches of (1024, 3, 144, 144, 3) per camera (pad-and-crop margin 8),
+# checked on the card against the CPU port on the same draws for the first
+# AUG_CPU_ROWS samples (the contrast mean sums in another order: atol
+# 1e-5, the CPU tests' jitter tolerance); MemoryDemos of 16,384 samples
+# in 256 episodes of 64 (1.6 GB of uint8 frames at 128x128, two cameras);
+# CACHE_STEPS updates per data route timed; the cache against the host
+# route over CACHE_CMP_STEPS steps at CACHE_CMP_BATCH; a resume at
+# CACHE_CUT of CACHE_RESUME_STEPS under augment_device at
+# PR5_RESUME_BATCH; evaluate_on with and without the cache over
+# EVAL_CACHE_BATCHES batches (the same pixels: within EVAL_CACHE_REL)
+PR5_CROP_MARGIN, AUG_HUE, AUG_CPU_ROWS, AUG_ATOL = 8, 0.05, 64, 1e-5
+PR5_CACHE_SAMPLES = 16 * PR5_BATCH
+CACHE_STEPS = 4
+CACHE_CMP_STEPS, CACHE_CMP_BATCH = 4, 256
+CACHE_CUT, CACHE_RESUME_STEPS = 6, 8
+EVAL_CACHE_BATCHES, EVAL_CACHE_REL = 2, 1e-3
+# the sharded cache on two ranks sharing the card: pr3 in 16 episodes
+SHARD_SAMPLES, SHARD_EPISODE = 1024, 64
+# the HTTP server: requests of one sample, a body limit of 1 MB, a
+# session of 6 frames (a camera lost on frame 3 is back in the window of
+# T = 3 on frame 6), 8 clients coalesced within 2 ms (coalesced batches
+# run other batch sizes than one request alone: rel 1e-3 of the pose,
+# bf16's 5e-2 where the model is bf16)
+SERVE_REQUESTS, SERVE_MAX_BODY_MB, SERVE_FRAMES = 20, 1.0, 6
+SERVE_CLIENTS, SERVE_COALESCE_MS, SERVE_ROUNDS = 8, 2.0, 4
+SERVE_COALESCED_REL = BF16_REL
 
 
 class SmokeFailure(RuntimeError):
@@ -1055,7 +1105,16 @@ class MemoryDemos:
     per-(sample, camera) parameter stream, one draw shared by the T frames
     of a sample, through the port's data/augment.py and native engine).
     The card's host has no h5py, so the trainer reads this instead of a
-    demo file."""
+    demo file.
+
+    The device-resident data path reads it as it reads the store: its
+    episodes are the demos (``frames_per_demo``, ``sample_demos``), sample
+    i's frame is flat frame i, ``build_resized_cache(hw)`` gives every
+    frame at ``hw`` (resized once by the native engine when hw is not the
+    model's size), ``emit_image_indices`` makes ``get_batch`` send frame
+    indices (rows of ``cache_plan``'s shard under the sharded layout),
+    and with ``device_aug_hw`` set an augmented batch is the frames resized
+    to it, left to the device to crop, flip and jitter."""
 
     def __init__(self, cfg, size: int, seed: int, episode: int = 0):
         m, d = cfg.model, cfg.data
@@ -1073,6 +1132,11 @@ class MemoryDemos:
         self.quat = (q / np.linalg.norm(q, axis=1, keepdims=True)
                      ).astype(np.float32)
         self.use_native = d.use_native
+        self.emit_image_indices = bool(d.device_cache)
+        self.cache_plan = None
+        self.device_aug_hw = (hw + 2 * d.crop_margin
+                              if d.augment_device and d.augment else None)
+        self._resized = {}
         self.aug_kwargs = dict(
             crop_scale=d.crop_scale, crop_ratio=d.crop_ratio,
             hflip_prob=d.hflip_prob, jitter_brightness=d.jitter_brightness,
@@ -1088,6 +1152,26 @@ class MemoryDemos:
                 np.maximum(self.proprio.std(0, dtype=np.float64), 1e-6)
                 .astype(np.float32))
 
+    def frames_per_demo(self):
+        return np.full(len(self) // self.episode, self.episode, np.int64)
+
+    def sample_demos(self):
+        return np.arange(len(self)) // self.episode
+
+    def build_resized_cache(self, hw: int):
+        if hw == self.hw:
+            return self.frames
+        if hw not in self._resized:
+            from rgb_proprioceptive_pose_estimator_tpu_torch.runtime import (
+                native,
+            )
+
+            check(native.available(), "the native augmentation engine did "
+                                      "not build")
+            self._resized[hw] = {c: native.center_crop_resize_batch(f, hw)
+                                 for c, f in self.frames.items()}
+        return self._resized[hw]
+
     def _camera_batch(self, cam, ci, indices, flat, augment, seed):
         from rgb_proprioceptive_pose_estimator_tpu_torch.data import (
             augment as aug,
@@ -1095,6 +1179,10 @@ class MemoryDemos:
         from rgb_proprioceptive_pose_estimator_tpu_torch.runtime import native
 
         n, t, hw = len(indices), self.t, self.hw
+        if augment and self.device_aug_hw is not None:
+            hw = self.device_aug_hw
+            frames = self.build_resized_cache(hw)[cam][flat]
+            return frames if t == 1 else frames.reshape(n, t, hw, hw, 3)
         frames = self.frames[cam][flat]                 # (n * T, hw, hw, 3)
         if augment:
             sseeds = (seed * 1_000_003 + indices * 31
@@ -1122,13 +1210,20 @@ class MemoryDemos:
         win = np.maximum(indices[:, None] + np.arange(1 - self.t, 1),
                          start[:, None])                # (n, T)
         flat = win.reshape(-1)
-        return {"images": {c: self._camera_batch(c, ci, indices, flat,
-                                                 augment, seed)
-                           for ci, c in enumerate(self.cameras)},
-                "proprio": (self.proprio[indices] if self.t == 1
-                            else self.proprio[win]),
-                "target_pos": self.pos[indices].copy(),
-                "target_quat": self.quat[indices].copy()}
+        out = {"proprio": (self.proprio[indices] if self.t == 1
+                           else self.proprio[win]),
+               "target_pos": self.pos[indices].copy(),
+               "target_quat": self.quat[indices].copy()}
+        if self.emit_image_indices:
+            fi = win[:, 0] if self.t == 1 else win
+            if self.cache_plan is not None:
+                fi = self.cache_plan.local_row_of_frame[fi]
+            out["image_idx"] = fi.astype(np.int32)
+        else:
+            out["images"] = {c: self._camera_batch(c, ci, indices, flat,
+                                                   augment, seed)
+                             for ci, c in enumerate(self.cameras)}
+        return out
 
 
 KERNEL_COUNTERS = ("normalize_u8", "scale_bias_relu",
@@ -1339,15 +1434,16 @@ def train_cfg(cfg, ckpt_dir, steps=TRAIN_STEPS, eval_every=TRAIN_STEPS,
 
 
 def run_training(fused, cfg, label, dataset, dev, smi, state=None,
-                 expect_steps=None):
+                 expect_steps=None, profile_iters=4):
     """``cfg``'s training through engine/loop.train_on (from seeded
     weights, or ``state``), with the launch counters set to 0 just before
     and read just after: ``expect_steps`` steps (default train.steps);
     checks the kernel launches of every step and eval forward against the
     model's BN sites, prints step time, images/s, peak memory and the
-    device time by kernel group. Returns (launch counts of the run,
-    train_on's result with the profiled device ms per step under
-    "busy_ms" when the profiler saw the device, the steps' times)."""
+    device time by kernel group over ``profile_iters`` profiled steps
+    after the first call. Returns (launch counts of the run, train_on's
+    result with the profiled device ms per step under "busy_ms" when the
+    profiler saw the device, the steps' times)."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
         HostPipeline,
     )
@@ -1363,12 +1459,16 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     act_sites, bn_count = bn_sites(state.model)
     steps, evals = [], []
     train_step, eval_step = loop.train_step, loop.eval_step
+    # the device cache and augmentation train_on passes to the step, kept
+    # for the profile below
+    step_data = {}
 
-    def timed_step(st, b, tc):
+    def timed_step(st, b, tc, *data):
+        step_data["args"] = data
         before = _counts(fused)
         copies = fused.scale_bias_relu.grad_layout_copies
         t = time.perf_counter()
-        m = train_step(st, b, tc)
+        m = train_step(st, b, tc, *data)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t, _delta(_counts(fused), before),
                       fused.scale_bias_relu.grad_layout_copies - copies))
@@ -1392,9 +1492,12 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     peak = torch.cuda.max_memory_allocated(dev)
 
     # one normalize_u8 per camera: every camera's encoder runs in training
-    # (camera dropout zeroes features, it skips no encoder)
+    # (camera dropout zeroes features, it skips no encoder); none under
+    # device augmentation, whose frames reach the model as floats
     cams = len(state.model.cameras)
-    want_step = {"normalize_u8": cams, "scale_bias_relu": act_sites,
+    device_aug = cfg.data.augment_device and cfg.data.augment
+    want_step = {"normalize_u8": 0 if device_aug else cams,
+                 "scale_bias_relu": act_sites,
                  "scale_bias_relu_backward": act_sites, "channel_stats": 0}
     if cfg.model.bn_stats == "pallas":
         want_step.update(scale_bias_relu=0, scale_bias_relu_backward=0,
@@ -1427,13 +1530,13 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     print(f"train {label}: gradient layout copies per step "
           f"{[c for _, _, c in steps]} (total {copies})", flush=True)
     times = [t * 1e3 for t, _, _ in steps]
-    if len(steps) <= STEPS_PER_CALL:
+    warm = tcfg.steps_per_call
+    if len(steps) <= warm:
         return launches, out, times
 
     # steady state: the steps after the first call (kernel builds, cuDNN
     # plans and the first batches land in the first)
-    p50, p90 = (float(v) for v in
-                np.percentile(times[STEPS_PER_CALL:], [50, 90]))
+    p50, p90 = (float(v) for v in np.percentile(times[warm:], [50, 90]))
     m = cfg.model
     frames = len(state.model.cameras) * m.temporal_frames
     rate = (f"{batch / p50 * 1e3:.1f} images/s" if frames <= 1 else
@@ -1444,7 +1547,9 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     pipe = HostPipeline(dataset, cfg.data, device=dev, train=True)
     try:
         prof = device_breakdown(
-            lambda: loop.train_step(state, next(pipe), tcfg), iters=4)
+            lambda: loop.train_step(state, next(pipe), tcfg,
+                                    *step_data.get("args", ())),
+            iters=profile_iters)
     finally:
         pipe.close()
     if prof is None:
@@ -1556,7 +1661,8 @@ def phase_training_pr5(rppt, fused, dev, smi, ckpt_root):
     """pr5 (two cameras, 3 frames through ResNet-18 at 128x128 and an LSTM
     each, camera dropout 0.15, bf16, global batch 1024) on both BN routes:
     one f32 step against the CPU at batch PR5_CMP_BATCH with an injected
-    camera keep mask, then 16 steps with an eval pass. Returns ({path:
+    camera keep mask. Its bf16 training at batch 1024 with an eval pass
+    is phase_device_cache_pr5's host augmentation route. Returns ({path:
     launch counts}, the in-memory dataset)."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
         PoseEstimator,
@@ -1586,13 +1692,7 @@ def phase_training_pr5(rppt, fused, dev, smi, ckpt_root):
         compare_step_with_cpu(fused, c, f"pr5 {route}", dataset, dev,
                               n=PR5_CMP_BATCH)
         torch.cuda.empty_cache()
-        counts, out, _ = run_training(
-            fused, train_cfg(c, f"{ckpt_root}/pr5_{route}"),
-            f"pr5 {route} {m.dtype}", dataset, dev, smi)
-        launches[f"train pr5 {route}"] = counts
-        del out
-        torch.cuda.empty_cache()
-    return launches, dataset
+    return {}, dataset
 
 
 def _checkpoint_differences(path_a, path_b):
@@ -1910,10 +2010,10 @@ def _ddp_pr5_rank(cfg, device, resume_cfg):
     steps = []
     train_step = loop.train_step
 
-    def timed_step(st, b, tc):
+    def timed_step(st, b, tc, *data):
         before = _counts(fused)
         t = time.perf_counter()
-        m = train_step(st, b, tc)
+        m = train_step(st, b, tc, *data)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t, _delta(_counts(fused),
                                                       before)))
@@ -2332,7 +2432,7 @@ def phase_extras_pr5(rppt, fused, dev, smi, ckpt_root, dataset):
     recalibration before the eval and the final save: PR5_UPDATES updates
     on each BN route (launches and peak memory from run_training; then
     p50/p90 per update over PR5_TIMED_UPDATES more, synchronized once an
-    update as fit runs them, samples/s, busy time and idle share); then
+    update as fit runs them, and samples/s); then
     the checks of the accumulated
     update, the EMA, the recalibration and a resume mid-accumulation.
     Returns {path: launch counts}."""
@@ -2356,7 +2456,7 @@ def phase_extras_pr5(rppt, fused, dev, smi, ckpt_root, dataset):
         c = cfg.override(**{"model.bn_stats": route})
         label = f"pr5 {route} grad_accum"
         torch.cuda.reset_peak_memory_stats(dev)
-        counts, out, times = run_training(
+        counts, out, _ = run_training(
             fused, train_cfg(c, f"{ckpt_root}/pr5_accum_{route}",
                              steps=steps, eval_every=steps), label,
             dataset, dev, smi)
@@ -2368,10 +2468,6 @@ def phase_extras_pr5(rppt, fused, dev, smi, ckpt_root, dataset):
               and training["step"] == steps and "ema" in training,
               f"{label}: {training['optimizer']['count']} updates in "
               f"{training['step']} micro-steps")
-        # after the first call (builds, cuDNN plans): whole updates, each
-        # the sum of run_training's synchronized micro-steps
-        synced = [sum(times[i:i + PR5_ACCUM])
-                  for i in range(STEPS_PER_CALL, steps, PR5_ACCUM)]
         # and as fit runs them: one synchronization an update
         pipe = HostPipeline(dataset, c.data, device=dev, train=True)
         updates = []
@@ -2386,18 +2482,12 @@ def phase_extras_pr5(rppt, fused, dev, smi, ckpt_root, dataset):
         finally:
             pipe.close()
         p50, p90 = (float(v) for v in np.percentile(updates, [50, 90]))
-        s50 = float(np.percentile(synced, 50))
-        busy = out.get("busy_ms")
-        busy_text = ("device busy not measured" if busy is None else
-                     f"device busy {busy * PR5_ACCUM:.4f} ms per update, "
-                     f"idle share {1 - busy * PR5_ACCUM / p50:.3f}")
         print(f"extras {label}: update of {PR5_ACCUM} micro-steps p50 "
               f"{p50:.3f} ms p90 {p90:.3f} ms over {len(updates)} updates "
-              f"synchronized once each ({s50:.3f} ms p50 over "
-              f"{len(synced)} updates synchronized at every micro-step), "
+              f"synchronized once each, "
               f"{PR5_MICRO * PR5_ACCUM / p50 * 1e3:.1f} samples/s at p50; "
-              f"{busy_text}; peak memory {peak / 2**30:.2f} GiB; launches "
-              f"{counts} ({smi})", flush=True)
+              f"peak memory {peak / 2**30:.2f} GiB; launches {counts} "
+              f"({smi})", flush=True)
         del out, final, training
         torch.cuda.empty_cache()
     c = cfg.override(**{"model.bn_stats": "reduce"})
@@ -2813,6 +2903,655 @@ def phase_multihost(rppt, fused, dev, smi, ckpt_root, dataset, hosts=None,
     return {k: sum(c[k] for c in launches) for k in KERNEL_COUNTERS}
 
 
+
+# ---------------------------------------------------------------------------
+# the device-resident data path (data.device_cache, data.augment_device)
+# and the HTTP server
+# ---------------------------------------------------------------------------
+
+
+def events_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms, with CUDA events around
+    ``iters`` calls after a warm one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device_aug(rppt, dev, smi):
+    """ops/image_augment_device at pr5's shape: (PR5_BATCH, 3, 128 + 2 *
+    PR5_CROP_MARGIN, ..., 3) uint8 per camera, both crop modes, hue on,
+    the pose mirror on. The card's output against the CPU port's on the
+    same injected draws (the first AUG_CPU_ROWS samples: every sample's
+    arithmetic is its own), crop and flip bit for bit; the card's time
+    with CUDA events for both cameras of a batch, beside the host
+    augmentation's for the same batch (MemoryDemos.get_batch through the
+    native engine on the host's cores)."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+        device_aug_of,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.ops import (
+        image_augment_device as ida,
+    )
+
+    base = pr5_config(rppt).override(**{
+        "data.augment_device": True, "data.crop_margin": PR5_CROP_MARGIN,
+        "data.hflip_prob": 0.5, "data.hflip_pose_mirror": True,
+        "data.jitter_hue": AUG_HUE})
+    m = base.model
+    hw = m.image_size + 2 * PR5_CROP_MARGIN
+    rs = np.random.RandomState(21)
+    host = {c: rs.randint(0, 256, (PR5_BATCH, m.temporal_frames, hw, hw, 3),
+                          np.uint8) for c in m.cameras}
+    q = rs.randn(PR5_BATCH, 4)
+    host_batch = {"images": host,
+                  "target_pos": rs.uniform(-0.3, 0.3, (PR5_BATCH, 3)).astype(
+                      np.float32),
+                  "target_quat": (q / np.linalg.norm(q, axis=1, keepdims=True)
+                                  ).astype(np.float32)}
+    batch = _to_device(host_batch, dev)
+    rows = slice(0, AUG_CPU_ROWS)
+    cpu_batch = _to_device(
+        {"images": {c: v[rows] for c, v in host.items()},
+         "target_pos": host_batch["target_pos"][rows],
+         "target_quat": host_batch["target_quat"][rows]}, "cpu")
+    for crop, over in (("pad-and-crop", {}),
+                       ("RandomResizedCrop", {"data.crop_scale": (0.6, 1.0),
+                                              "data.crop_ratio": (0.75,
+                                                                  1.333)})):
+        kw = device_aug_of(base.override(**over))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        draws = ida.draw_batch_aug(gen, batch, **kw)
+        cpu_draws = {c: {k: v[rows].cpu() for k, v in d.items()}
+                     for c, d in draws.items()}
+        got = ida.augment_batch_images(batch, draws, **kw)
+        want = ida.augment_batch_images(cpu_batch, cpu_draws, **kw)
+        err = max(float((got["images"][c][rows].cpu() - want["images"][c])
+                        .abs().max()) for c in m.cameras)
+        geo = dict(kw, jitter_prob=0.0)
+        g_geo = ida.augment_batch_images(batch, draws, **geo)
+        w_geo = ida.augment_batch_images(cpu_batch, cpu_draws, **geo)
+        exact = all(torch.equal(g_geo["images"][c][rows].cpu(),
+                                w_geo["images"][c]) for c in m.cameras)
+        labels = all(torch.equal(got[k][rows].cpu(), want[k])
+                     for k in ("target_pos", "target_quat"))
+        flips = int(draws["flip_mask"]["flip"].sum())
+        del g_geo, got
+        ms = events_ms(lambda: ida.augment_batch_images(batch, draws, **kw))
+        print(f"device augment pr5 {crop}: {len(m.cameras)} cameras x "
+              f"({PR5_BATCH}, {m.temporal_frames}, {hw}, {hw}, 3) uint8 -> "
+              f"{m.image_size}x{m.image_size} f32, hue {AUG_HUE}, pose "
+              f"mirror ({flips} of {PR5_BATCH} flipped): card against the "
+              f"CPU port on the same draws ({AUG_CPU_ROWS} samples) max abs "
+              f"error {err:.3g} (limit {AUG_ATOL}); crop and flip bit for "
+              f"bit: {exact}; mirrored labels bit for bit: {labels}; "
+              f"{ms:.4f} ms a batch on the card (CUDA events) ({smi})",
+              flush=True)
+        check(err <= AUG_ATOL and exact and labels and 0 < flips < PR5_BATCH,
+              f"device augment {crop} differs from the CPU port")
+    del batch
+    torch.cuda.empty_cache()
+    # the host's augmentation of the same batch's samples: crop, flip and
+    # jitter of 2 cameras x 3 frames a sample on the host's cores
+    data = MemoryDemos(pr5_config(rppt), PR5_BATCH, seed=22,
+                       episode=PR5_EPISODE)
+    times = []
+    for i in range(3):
+        t = time.perf_counter()
+        data.get_batch(np.arange(PR5_BATCH), augment=True, seed=i)
+        times.append((time.perf_counter() - t) * 1e3)
+    print(f"device augment pr5: the host augmentation of a batch of "
+          f"{PR5_BATCH} (MemoryDemos.get_batch, native engine, "
+          f"{os.cpu_count()} host cores) {float(np.median(times)):.3f} ms "
+          f"median of 3 (host clock) ({smi})", flush=True)
+
+
+def _route_cfg(cfg, route):
+    """``cfg`` on one of the three data routes at the same config."""
+    if route == "host augmentation":
+        return cfg
+    over = {"data.device_cache": True}
+    if route == "device cache + augment_device":
+        over.update({"data.augment_device": True,
+                     "data.crop_margin": PR5_CROP_MARGIN})
+    else:
+        over["data.augment"] = False
+    return cfg.override(**over)
+
+
+def _use_route(dataset, cfg):
+    """Point the shared in-memory dataset at ``cfg``'s data route, as
+    build_dataset makes a store for it."""
+    d = cfg.data
+    dataset.emit_image_indices = bool(d.device_cache)
+    dataset.cache_plan = None
+    dataset.device_aug_hw = (cfg.model.image_size + 2 * d.crop_margin
+                             if d.augment_device and d.augment else None)
+
+
+def phase_device_cache_pr5(rppt, fused, dev, smi, ckpt_root):
+    """pr5 bf16 on one card, on MemoryDemos of PR5_CACHE_SAMPLES samples
+    in episodes of PR5_EPISODE (two cameras at 128x128), on three data
+    routes at the same config: host augmentation (the host pipeline of
+    earlier phases), device cache + augment_device (frames at 128 + 2 *
+    PR5_CROP_MARGIN in device memory, crop, flip and jitter in the step),
+    device cache without augmentation; each at batch PR5_BATCH and at
+    PR5_MICRO x PR5_ACCUM accumulated, on both BN routes: step (update)
+    p50/p90, the profiler's busy time and idle share, peak memory, and
+    launches (no normalize_u8 under augment_device); the host route at
+    batch PR5_BATCH evaluates too, and leaves the checkpoint that
+    phase_serve serves (cache_reduce_1_0). Then the checks: the
+    cache route without augmentation equals the host route without it
+    bit for bit over CACHE_CMP_STEPS steps (deterministic cuDNN); a resume
+    at step CACHE_CUT under augment_device equals the straight run;
+    evaluate_on with and without the cache within EVAL_CACHE_REL; the
+    budget refusal. Returns {path: launch counts}."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch import api
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+
+    base = pr5_config(rppt).override(**{"train.steps_per_call": 4})
+    t = time.perf_counter()
+    dataset = MemoryDemos(base, PR5_CACHE_SAMPLES, seed=9,
+                          episode=PR5_EPISODE)
+    hw = base.model.image_size + 2 * PR5_CROP_MARGIN
+    dataset.build_resized_cache(hw)
+    nbytes = {h: sum(a.nbytes for a in dataset.build_resized_cache(h)
+                     .values()) for h in (base.model.image_size, hw)}
+    print(f"device cache pr5: {len(dataset)} samples in "
+          f"{len(dataset.frames_per_demo())} episodes of {PR5_EPISODE}, "
+          f"cameras {list(base.model.cameras)}: "
+          f"{nbytes[base.model.image_size] / 1e9:.3f} GB of uint8 frames at "
+          f"{base.model.image_size}, {nbytes[hw] / 1e9:.3f} GB at {hw} "
+          f"(made and resized in {time.perf_counter() - t:.1f} s)",
+          flush=True)
+    routes = ("host augmentation", "device cache + augment_device",
+              "device cache, augment=False")
+    launches = {}
+    for bn in ("reduce", "pallas"):
+        for accum in (1, PR5_ACCUM):
+            batch = PR5_BATCH // accum
+            c = base.override(**{"model.bn_stats": bn,
+                                 "data.batch_size": batch,
+                                 "train.grad_accum": accum})
+            steps = CACHE_STEPS * accum
+            for r, route in enumerate(routes):
+                rc = _route_cfg(c, route)
+                _use_route(dataset, rc)
+                label = (f"pr5 {bn} {route} "
+                         + (f"batch {batch}" if accum == 1 else
+                            f"{batch} x {accum} accumulated"))
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                # the host route at batch 1024 evaluates too (what
+                # phase_training_pr5 ran before); the profile covers one
+                # step, or half an update
+                evals = steps if (accum == 1 and r == 0) else 0
+                counts, out, times = run_training(
+                    fused, train_cfg(rc, f"{ckpt_root}/cache_{bn}_{accum}_{r}",
+                                     steps=steps, eval_every=evals,
+                                     **{"train.steps_per_call": accum}),
+                    label, dataset, dev, smi,
+                    profile_iters=max(accum // 2, 1))
+                peak = torch.cuda.max_memory_allocated(dev)
+                launches[f"device cache {label}"] = counts
+                warm = accum
+                updates = [sum(times[i:i + accum])
+                           for i in range(warm, steps, accum)]
+                p50, p90 = (float(v) for v in
+                            np.percentile(updates, [50, 90]))
+                busy = out.get("busy_ms")
+                busy_text = ("device busy not measured" if busy is None else
+                             f"device busy {busy * accum:.4f} ms an update, "
+                             f"idle share {1 - busy * accum / p50:.3f}")
+                print(f"device cache {label}: update p50 {p50:.3f} ms p90 "
+                      f"{p90:.3f} ms over {len(updates)} updates "
+                      f"(synchronized micro-steps summed), "
+                      f"{PR5_BATCH / p50 * 1e3:.1f} samples/s; {busy_text}; "
+                      f"peak memory {peak / 2**30:.2f} GiB ({smi})",
+                      flush=True)
+                del out
+    torch.cuda.empty_cache()
+    c = base.override(**{"model.bn_stats": "reduce",
+                         "data.batch_size": CACHE_CMP_BATCH})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        finals = {}
+        for route in ("host augmentation", "device cache, augment=False"):
+            rc = _route_cfg(c.override(**{"data.augment": False}), route)
+            _use_route(dataset, rc)
+            _zero_counts(fused)
+            out = loop.train_on(train_cfg(
+                rc, f"{ckpt_root}/cache_cmp_{len(finals)}",
+                steps=CACHE_CMP_STEPS, eval_every=0,
+                **{"train.steps_per_call": 1}), create_state(rc, dev),
+                dataset, dataset)
+            launches[f"device cache pr5 bitwise {route}"] = _counts(fused)
+            finals[route] = out["ckpt_path"]
+        differ = _checkpoint_differences(*finals.values())
+        print(f"device cache pr5: {CACHE_CMP_STEPS} steps at batch "
+              f"{CACHE_CMP_BATCH} without augmentation, cache route against "
+              f"the host route (deterministic cuDNN): elements that differ "
+              f"{differ}", flush=True)
+        check(not any(differ.values()), "the cache route's steps differ "
+                                        "from the host route's")
+        # a resume under augment_device at step CACHE_CUT
+        rc = _route_cfg(c.override(**{"data.batch_size": PR5_RESUME_BATCH}),
+                        "device cache + augment_device")
+        _use_route(dataset, rc)
+        runs = {}
+        _zero_counts(fused)
+        for name, steps, d in (("straight", CACHE_RESUME_STEPS, "straight"),
+                               ("cut", CACHE_CUT, "resumed"),
+                               ("resumed", CACHE_RESUME_STEPS, "resumed")):
+            out = loop.train_on(train_cfg(
+                rc, f"{ckpt_root}/cache_resume_{d}", steps=steps,
+                eval_every=0, **{"train.steps_per_call": 1,
+                                 "train.ckpt_every": CACHE_CUT}),
+                create_state(rc, dev), dataset, dataset)
+            runs[name] = out
+        launches["device cache pr5 resume"] = _counts(fused)
+        differ = _checkpoint_differences(runs["straight"]["ckpt_path"],
+                                         runs["resumed"]["ckpt_path"])
+        ended = runs["resumed"]["state"].step
+        print(f"device cache pr5: augment_device at batch "
+              f"{PR5_RESUME_BATCH}, {CACHE_RESUME_STEPS} straight steps "
+              f"against {CACHE_CUT} and a resume to {CACHE_RESUME_STEPS} "
+              f"(deterministic cuDNN): elements that differ {differ}",
+              flush=True)
+        check(ended == CACHE_RESUME_STEPS and not any(differ.values()),
+              "the resumed augment_device run differs from the straight run")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    model = runs["straight"]["model"]
+    del runs
+    # evaluate_on with and without the cache, the same model
+    ev = {}
+    for route in ("host augmentation", "device cache, augment=False"):
+        rc = _route_cfg(base.override(**{"data.augment": False}), route)
+        _use_route(dataset, rc)
+        _zero_counts(fused)
+        ev[route] = api.evaluate_on(rc, model, dataset,
+                                    max_batches=EVAL_CACHE_BATCHES)
+        launches[f"evaluate pr5 {route}"] = _counts(fused)
+    a, b = ev.values()
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for k in ("loss", "pos_mae_cm", "rot_mae_deg"))
+    print(f"device cache pr5: evaluate_on over {EVAL_CACHE_BATCHES} batches "
+          f"of {base.data.batch_size}, with the cache {b} against without "
+          f"{a}: worst rel {rel:.3g} (limit {EVAL_CACHE_REL})", flush=True)
+    check(rel <= EVAL_CACHE_REL, "evaluate_on with the cache differs")
+    del model
+    # the budget refusal, before anything is allocated on the card
+    before = torch.cuda.memory_allocated(dev)
+    try:
+        loop.upload_image_cache(dataset, hw, dev, budget_bytes=nbytes[hw] - 1)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"device cache pr5: budget {nbytes[hw] - 1} bytes for "
+          f"{nbytes[hw]}: {refused!r}", flush=True)
+    check("budget" in refused and torch.cuda.memory_allocated(dev) == before,
+          "the upload budget did not refuse before allocating")
+    _use_route(dataset, base)
+    del dataset
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _sharded_rank(cfg, device, state_dict, samples, episode):
+    """One rank of phase_sharded_cache: train_on with the sharded cache on
+    a MemoryDemos made anew from the phase's seed (``samples`` in episodes
+    of ``episode``), with the bytes of the cache this rank uploaded and
+    its launches counted."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
+
+    dataset = MemoryDemos(cfg, samples, seed=23, episode=episode)
+    uploads = []
+    upload = loop.upload_image_cache
+
+    def counted(*args, **kwargs):
+        out = upload(*args, **kwargs)
+        uploads.append(sum(t.numel() * t.element_size()
+                           for t in out.values()))
+        return out
+
+    loop.upload_image_cache = counted
+    _zero_counts(fused)
+    out = loop.train_on(cfg, create_state(cfg, device, state_dict), dataset,
+                        dataset)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return {"cache_bytes": uploads, "launches": _counts(fused),
+            "state_dict": {k: v.detach().cpu() for k, v in
+                           out["model"].state_dict().items()},
+            "plan_rows": dataset.cache_plan.rows_per_shard}
+
+
+def phase_sharded_cache(rppt, dev, smi, ckpt_root, devices=None,
+                        backend="gloo", **overrides):
+    """data.cache_layout="sharded" on DDP_RANKS ranks sharing the card
+    over gloo (default; ``devices`` and ``backend`` otherwise): pr3 f32 at
+    batch 128 (dotted ``overrides`` on top), DDP_STEPS SGD steps of
+    train_on, each rank holding only its shard of the frames (its cache
+    bytes printed), against one process fed the same global batches (the
+    shard-constrained sampler's, gathered from one replicated cache), with
+    phase_ddp_pr3's tolerances. Returns the ranks' launch counts, summed."""
+    import json as json_
+
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.cache_shard import (
+        build_shard_plan,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
+        random_jax_variables,
+        state_dict_from_jax,
+    )
+
+    devices = devices or [torch.device("cuda", 0)] * DDP_RANKS
+    n = len(devices)
+    cfg = rppt.preset("pr3").override(**{
+        "model.dtype": "float32", "train.optimizer": "sgd",
+        "train.lr": DDP_LR, "train.grad_clip": 0.0,
+        "train.lr_schedule": "constant", "train.warmup_steps": 0,
+        "train.steps": DDP_STEPS, "train.steps_per_call": 1,
+        "train.log_every": 1, "train.eval_every": 0, "train.ckpt_every": 0,
+        "data.device_cache": True, "data.augment": False,
+        "data.cache_layout": "sharded", "dist.num_devices": n,
+        "train.ckpt_dir": f"{ckpt_root}/sharded", **overrides})
+    sd = state_dict_from_jax(random_jax_variables(cfg.model, seed=0),
+                             cfg.model)
+    # the one process: the sampler's global batches, as pixels, from the
+    # proprio statistics train_on writes into the model
+    dataset = MemoryDemos(cfg, SHARD_SAMPLES, seed=23, episode=SHARD_EPISODE)
+    if cfg.model.use_proprio and cfg.model.proprio_normalize:
+        mean, std = dataset.proprio_stats()
+        sd = {**sd, "proprio.proprio_mean": torch.from_numpy(mean),
+              "proprio.proprio_std": torch.from_numpy(std)}
+    plan = build_shard_plan(dataset.frames_per_demo(), n)
+    dataset.emit_image_indices = False
+    pipe = HostPipeline(dataset, cfg.data, device="cpu", train=True,
+                        shard_of_sample=plan.shard_of_sample(
+                            dataset.sample_demos()), n_shards=n)
+    batches = [{k: ({c: a.numpy() for c, a in v.items()}
+                    if isinstance(v, dict) else v.numpy())
+                for k, v in next(pipe).items()} for _ in range(DDP_STEPS)]
+    pipe.close()
+    one = dist.run_steps(cfg.override(**{"dist.num_devices": 1}), dev, sd,
+                         batches)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dist.launch(_sharded_rank, cfg, devices, backend, sd,
+                        SHARD_SAMPLES, SHARD_EPISODE)
+    t_ranks = time.perf_counter() - t
+    with open(f"{cfg.train.ckpt_dir}/metrics.jsonl") as f:
+        losses = [r["train/loss"] for r in map(json_.loads, f)
+                  if "train/loss" in r]
+    want_losses = [m["loss"] for m in one["losses"]]
+    loss_rel = max(abs(g - w) / abs(w) for g, w in zip(losses, want_losses))
+    r0, want = ranks[0]["state_dict"], one["state_dict"]
+    stats = [k for k in r0 if k.endswith(("running_mean", "running_var"))]
+    same = all(torch.equal(r["state_dict"][k], r0[k]) for r in ranks
+               for k in r0)
+    moved = [k for k, v in want.items() if v.is_floating_point()
+             and k not in stats and not k.startswith("proprio.proprio_")]
+    diff = math.sqrt(sum(float(((r0[k] - want[k]) ** 2).sum())
+                         for k in moved))
+    update = math.sqrt(sum(float(((want[k] - sd[k]) ** 2).sum())
+                           for k in moved))
+    full = sum(a.nbytes for a in dataset.build_resized_cache(
+        cfg.model.image_size).values())
+    per_rank = [r["cache_bytes"] for r in ranks]
+    print(f"sharded cache pr3 f32: {n} ranks over {backend}, "
+          f"{SHARD_SAMPLES} samples in episodes of {SHARD_EPISODE}, "
+          f"{full} bytes of frames in all; cache bytes per rank {per_rank} "
+          f"({ranks[0]['plan_rows']} rows a shard); {DDP_STEPS} SGD steps "
+          f"in {t_ranks:.2f} s with the launch: losses {losses} against "
+          f"{want_losses} in one process on the same global batches, worst "
+          f"rel {loss_rel:.3g} (rtol {CMP_LOSS_RTOL}); update differs by "
+          f"{diff / update:.3g} of its L2 norm (limit {DDP_UPDATE_REL}); "
+          f"ranks equal bit for bit: {same}; launches per rank "
+          f"{[r['launches'] for r in ranks]} ({smi})", flush=True)
+    check(len(losses) == DDP_STEPS and loss_rel <= CMP_LOSS_RTOL,
+          "sharded cache: losses differ from one process's")
+    check(diff <= DDP_UPDATE_REL * update and same,
+          "sharded cache: the update differs from one process's")
+    check(all(b == [full // n] for b in per_rank),
+          f"sharded cache: a rank holds more than its shard {per_rank}")
+    check(dev.type == "cpu" or all(r["launches"]["normalize_u8"]
+                                   for r in ranks),
+          "sharded cache: the ranks launched no kernel")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in KERNEL_COUNTERS}
+
+
+def _post(port, payload=None, raw=None, path="/predict"):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    body = raw if raw is not None else (
+        None if payload is None else json.dumps(payload))
+    conn.request("POST" if body is not None else "GET", path, body=body,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+    conn.close()
+    return resp.status, out
+
+
+def _post_oversized(port, nbytes):
+    """The status of a POST that announces ``nbytes`` of body and sends
+    none: the server answers from the header alone (a body sent after a
+    413 would meet a closed connection)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.putrequest("POST", "/predict")
+    conn.putheader("Content-Type", "application/json")
+    conn.putheader("Content-Length", str(nbytes))
+    conn.endheaders()
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    return resp.status
+
+
+def _raw_image(img):
+    import base64
+
+    return {"b64": base64.b64encode(np.ascontiguousarray(img).tobytes())
+            .decode(), "encoding": "raw", "shape": list(img.shape)}
+
+
+def phase_serve(fused, smi, checkpoints):
+    """utils/serve on 127.0.0.1:0 over the checkpoints the earlier phases
+    wrote ({name: file}), with "raw" images: each answer equal
+    to the in-process Predictor's bit for bit; for a temporal model a
+    session of SERVE_FRAMES frames that loses robot0_eye_in_hand on frame
+    3 and gets it back, equal to an in-process ObsBuffer + Predictor; a
+    413 and a 400; p50/p90 per request at 1 client and at SERVE_CLIENTS
+    clients with coalesce_ms SERVE_COALESCE_MS (host clock). Returns
+    {path: launch counts}."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import (
+        checkpoint,
+        serve,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.obs_buffer import (
+        ObsBuffer,
+    )
+
+    launches = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, path in checkpoints.items():
+            cfg = checkpoint.load_training(path)[0]
+            m = cfg.model
+            rs = np.random.RandomState(31)
+            hw = m.image_size
+
+            def frame(dead=()):
+                obs = {"images": {c: rs.randint(0, 256, (hw, hw, 3),
+                                                np.uint8)
+                                  for c in m.cameras if c not in dead}}
+                if m.use_proprio:
+                    obs["proprio"] = rs.randn(m.proprio_dim).astype(
+                        np.float32)
+                return obs
+
+            def window():
+                t = (m.temporal_frames,) if m.temporal_frames > 1 else ()
+                obs = {"images": {c: rs.randint(0, 256, t + (hw, hw, 3),
+                                                np.uint8)
+                                  for c in m.cameras}}
+                if m.use_proprio:
+                    obs["proprio"] = rs.randn(*t, m.proprio_dim).astype(
+                        np.float32)
+                return obs
+
+            def payload(obs, **extra):
+                out = {"images": {c: _raw_image(v)
+                                  for c, v in obs["images"].items()},
+                       **extra}
+                if "proprio" in obs:
+                    out["proprio"] = obs["proprio"].tolist()
+                return out
+
+            _zero_counts(fused)
+            for coalesce in (0.0, SERVE_COALESCE_MS):
+                service = serve.PoseService(cfg, ckpt_path=path,
+                                            max_batch=SERVE_CLIENTS,
+                                            coalesce_ms=coalesce)
+                httpd = serve.make_server(service, port=0,
+                                          max_body_mb=SERVE_MAX_BODY_MB)
+                port = httpd.server_address[1]
+                thread = threading.Thread(target=httpd.serve_forever,
+                                          daemon=True)
+                thread.start()
+                pred = service.predictor
+                try:
+                    status, health = _post(port, raw=None, path="/healthz")
+                    check(status == 200 and health["step"] == service.step,
+                          f"serve {name}: /healthz {status} {health}")
+                    if coalesce == 0.0:
+                        obs = [window() for _ in range(SERVE_REQUESTS)]
+                        times, same = [], True
+                        for o in obs:
+                            t = time.perf_counter()
+                            status, out = _post(port, payload(o))
+                            times.append((time.perf_counter() - t) * 1e3)
+                            pos, quat = pred(o)
+                            same &= (status == 200
+                                     and out["pos"] == pos.tolist()
+                                     and out["quat"] == quat.tolist())
+                        p50, p90 = np.percentile(times[1:], [50, 90])
+                        print(f"serve {name}: {len(obs)} requests of one "
+                              f"sample from 1 client, answers equal to the "
+                              f"in-process Predictor bit for bit: {same}; "
+                              f"p50 {p50:.3f} ms p90 {p90:.3f} ms a request "
+                              f"(host clock) ({smi})", flush=True)
+                        check(same, f"serve {name}: an HTTP answer differs "
+                                    "from the Predictor's")
+                        s413 = _post_oversized(
+                            port, int(SERVE_MAX_BODY_MB * 2 ** 20) + 1)
+                        s400, e400 = _post(port, raw="{not json")
+                        print(f"serve {name}: a body over "
+                              f"{SERVE_MAX_BODY_MB} MB -> {s413}; invalid "
+                              f"JSON -> {s400} {e400}", flush=True)
+                        check(s413 == 413 and s400 == 400,
+                              f"serve {name}: {s413} and {s400}")
+                        if m.temporal_frames > 1:
+                            dead = "robot0_eye_in_hand"
+                            buf = ObsBuffer(m)
+                            fields, same = [], True
+                            for i in range(SERVE_FRAMES):
+                                fr = frame((dead,) if i == 2 else ())
+                                status, out = _post(port, payload(
+                                    fr, session="s", reset=i == 0))
+                                pos, quat = pred(buf.push(fr))
+                                same &= (status == 200
+                                         and out["pos"] == pos.tolist()
+                                         and out["quat"] == quat.tolist())
+                                fields.append(out.get("dead_cameras", []))
+                            print(f"serve {name}: a session of "
+                                  f"{SERVE_FRAMES} frames losing {dead} on "
+                                  f"frame 3: dead cameras per answer "
+                                  f"{fields}; equal to ObsBuffer + "
+                                  f"Predictor bit for bit: {same}",
+                                  flush=True)
+                            want = [[dead] if 2 <= i < 2 + m.temporal_frames
+                                    else [] for i in range(SERVE_FRAMES)]
+                            check(same and fields == want,
+                                  f"serve {name}: the session differs")
+                    else:
+                        obs = [window() for _ in range(SERVE_CLIENTS)]
+                        solo = [pred(o) for o in obs]
+                        times, worst = [], 0.0
+
+                        def ask(o):
+                            t = time.perf_counter()
+                            out = _post(port, payload(o))
+                            return out, (time.perf_counter() - t) * 1e3
+
+                        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                            for _ in range(SERVE_ROUNDS):
+                                for ((status, out), ms), (pos, _) in zip(
+                                        pool.map(ask, obs), solo):
+                                    check(status == 200,
+                                          f"serve {name}: {status} {out}")
+                                    times.append(ms)
+                                    worst = max(worst, float(np.abs(
+                                        np.asarray(out["pos"]) - pos).max()
+                                        / max(np.abs(pos).max(), 1e-12)))
+                        h = _post(port, raw=None, path="/healthz")[1]
+                        p50, p90 = np.percentile(times, [50, 90])
+                        print(f"serve {name}: {SERVE_CLIENTS} clients at "
+                              f"once, coalesce_ms {coalesce}: p50 {p50:.3f} "
+                              f"ms p90 {p90:.3f} ms a request over "
+                              f"{len(times)} (host clock); "
+                              f"{h['coalesced_batches']} device calls, mean "
+                              f"batch {h['mean_batch']}; poses against the "
+                              f"Predictor's one by one worst rel "
+                              f"{worst:.3g} (limit {SERVE_COALESCED_REL}) "
+                              f"({smi})", flush=True)
+                        check(worst <= SERVE_COALESCED_REL
+                              and h["mean_batch"] > 1,
+                              f"serve {name}: coalesced answers")
+                finally:
+                    httpd.shutdown()
+                    httpd.server_close()
+                    service.close()
+                    thread.join(timeout=10)
+            torch.cuda.synchronize()
+            launches[f"serve {name} (HTTP)"] = _counts(fused)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2909,6 +3648,21 @@ def main() -> int:
                                       pr3_data))
         paths["multihost pr3 (2 hosts)"] = phase_multihost(
             rppt, fused, dev, smi, ckpt_root, pr3_data)
+        # the device-resident data path, then the HTTP server over the
+        # checkpoints written above
+        phase_device_aug(rppt, dev, smi)
+        paths.update(phase_device_cache_pr5(rppt, fused, dev, smi,
+                                            ckpt_root))
+        paths["sharded cache pr3 (2 ranks)"] = phase_sharded_cache(
+            rppt, dev, smi, ckpt_root)
+        from rgb_proprioceptive_pose_estimator_tpu_torch.utils import (
+            checkpoint,
+        )
+
+        paths.update(phase_serve(fused, smi, {
+            "pr3": ckpt_path,
+            "pr5": checkpoint.resolve(
+                f"{ckpt_root}/cache_reduce_1_0")[0]}))
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

@@ -186,7 +186,12 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
     prediction and error to that .npz and adds "predictions_path". These
     share one per-sample pass over the whole split. drop_cameras are
     scored as dead: absent from the batch, so their encoders do not run
-    and they contribute zeroed features."""
+    and they contribute zeroed features.
+
+    With data.device_cache the split's frames are uploaded once (its
+    drop_cameras left out) and the batches gather them, each rank its own
+    shard under data.cache_layout="sharded" on N > 1; the per-sample pass
+    reads pixels."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.data.pipeline import (
         HostPipeline,
     )
@@ -206,15 +211,41 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
     batch_size = (min(cfg.data.batch_size, n) // world) * world
     if batch_size == 0:
         world, batch_size = 1, min(cfg.data.batch_size, n)
-    pipe = HostPipeline(dataset, cfg.data, device=device, train=False,
-                        batch_size=batch_size,
-                        rank=dist.rank() if world > 1 else 0, world=world)
+    rank = dist.rank() if world > 1 else 0
+    use_cache = cfg.data.device_cache and cfg.model.backbone != "none"
+    # data.cache_layout="sharded" on N > 1 ranks: each rank holds and
+    # gathers from its shard alone (data/cache_shard.py)
+    plan = None
+    if use_cache and cfg.data.cache_layout == "sharded" and world > 1:
+        from rgb_proprioceptive_pose_estimator_tpu_torch.data.cache_shard import (
+            build_shard_plan,
+        )
+
+        plan = build_shard_plan(dataset.frames_per_demo(), world)
+    if use_cache:
+        dataset.cache_plan = plan
+    pipe = HostPipeline(
+        dataset, cfg.data, device=device, train=False,
+        batch_size=batch_size, rank=rank, world=world,
+        shard_of_sample=(plan.shard_of_sample(dataset.sample_demos())
+                         if plan is not None else None),
+        n_shards=world if plan is not None else 1)
     try:
+        eval_cache = None
+        if use_cache:
+            from rgb_proprioceptive_pose_estimator_tpu_torch.engine.loop import (
+                upload_image_cache,
+            )
+
+            eval_cache = upload_image_cache(
+                dataset, cfg.model.image_size, device,
+                skip_cameras=drop_cameras, plan=plan, rank=rank)
         out: Dict[str, Any] = evaluate_pipeline(
             model, pipe, cfg, max_batches=max_batches,
-            drop_cameras=drop_cameras)
+            drop_cameras=drop_cameras, image_cache=eval_cache)
     finally:
         pipe.close()
+    del eval_cache          # device memory the per-sample pass may need
     out["step"] = step
     if (not (per_demo or percentiles or success_at or dump_predictions)
             or dist.rank() != 0):
@@ -234,6 +265,9 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
         "target_pos": np.empty((n, 3), np.float32),
         "target_quat": np.empty((n, 4), np.float32),
     } if dump_predictions else {}
+    # the per-sample pass takes pixels, not the cache's indices
+    emits = getattr(dataset, "emit_image_indices", False)
+    dataset.emit_image_indices = False
     for lo in range(0, n, 256):
         idx = np.arange(lo, min(lo + 256, n))
         batch = dataset.get_batch(idx, augment=False, seed=0)
@@ -251,6 +285,7 @@ def evaluate_on(cfg: Config, model: PoseEstimator, dataset,
             dump["pred_quat"][idx] = quat
             dump["target_pos"][idx] = tpos
             dump["target_quat"][idx] = tquat
+    dataset.emit_image_indices = emits
 
     if dump_predictions:
         dump["pos_err_cm"] = pos_err
@@ -319,6 +354,10 @@ class Predictor:
     ``allow_missing_cameras=True``: that camera contributes the zeroed
     feature vector and its encoder does not run. Otherwise a missing
     camera raises KeyError.
+
+    ``step`` is the served checkpoint's step (0 for weights that name
+    none: ``model``, ``state_dict``), which ``utils/serve.py``'s
+    ``/healthz`` reports.
     """
 
     def __init__(self, cfg: Config, ckpt_dir: Optional[str] = None,
@@ -344,16 +383,19 @@ class Predictor:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.cfg = cfg
+        self.step = 0 if state is None else int(state.step)
         if state is not None and state.ema is not None:
             # the weights the state serves: its EMA's
             state_dict, model = state.serving_state_dict(), None
             device = device or next(state.model.parameters()).device
         if ckpt_path is not None:
-            state_dict = checkpoint.load(ckpt_path)[1]
+            _, weights, training = checkpoint.load_training(ckpt_path)
+            state_dict = checkpoint.served(weights, training)
+            self.step = int((training or {}).get("step", 0))
         if state_dict is not None:
             model = _model_from(cfg, state_dict, device)
         elif model is None:
-            model, _ = load_model(cfg, ckpt_dir, step, device)
+            model, self.step = load_model(cfg, ckpt_dir, step, device)
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.max_batch = max_batch
@@ -405,19 +447,40 @@ class Predictor:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
-    def warmup(self) -> "Predictor":
+    def warmup(self, dead_camera_sets: Sequence[Sequence[str]] = ()
+               ) -> "Predictor":
         """Run one zeroed max_batch call end to end, so the kernels are
         built and loaded and the first real call pays none of that.
-        Returns self for chaining."""
+
+        dead_camera_sets: also run each set of cameras omitted (a
+        dead-camera signature a robust stack may meet mid-run, such as
+        every single failure of a dual-camera model), so that the first
+        call after a sensor dies pays no first-call cost either. Needs a
+        model that accepts missing cameras (model.camera_dropout, or
+        allow_missing_cameras=True). Returns self for chaining."""
         m = self.cfg.model
         t = (m.temporal_frames,) if m.temporal_frames > 1 else ()
-        obs: Dict[str, Any] = {"images": {
-            c: np.zeros((self.max_batch, *t, m.image_size, m.image_size, 3),
-                        np.uint8) for c in self.model.cameras}}
+        obs: Dict[str, Any] = {}
+        if m.backbone != "none":
+            hw = (m.image_size, m.image_size, 3)
+            obs["images"] = {
+                c: np.zeros((self.max_batch, *t, *hw), np.uint8)
+                for c in m.cameras}
         if m.use_proprio:
             obs["proprio"] = np.zeros(
                 (self.max_batch, *t, m.proprio_dim), np.float32)
         self(obs)
+        for dead in dead_camera_sets:
+            dead = set(dead)
+            unknown = dead - set(m.cameras)
+            if unknown:
+                raise ValueError(
+                    f"warmup(dead_camera_sets=...): {sorted(unknown)} not "
+                    f"in model.cameras={list(m.cameras)}")
+            dobs = dict(obs)
+            dobs["images"] = {c: v for c, v in obs.get("images", {}).items()
+                              if c not in dead}
+            self(dobs)
         return self
 
     def __call__(self, obs: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray]:

@@ -8,16 +8,19 @@ Usage:
         --preset pr3 --set train.ckpt_dir=/tmp/ckpt --percentiles
     python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli config --preset pr4
     python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli info --preset pr4
+    python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli serve \
+        --preset pr3 --set train.ckpt_dir=/tmp/ckpt --port 8080
 
-``train``, ``eval`` and ``predict`` run on ``--device`` (default cuda;
-``--device cpu`` runs the kernels' plain versions on the CPU); ``train``
-and ``eval`` with ``dist.num_devices`` resolving to N > 1 run N
-data-parallel processes, one per card (``api.train``, ``api.evaluate``).
-``info`` prints the reference's report, and on stderr the device count
-that ``dist.num_devices`` resolves to. ``export``,
-``serve``, ``render``, ``repack``, ``sweep``, ``curves`` and ``inspect``
-are not in the port yet: they exit with status 2, naming ROADMAP.md
-queue A item 11.
+``train``, ``eval``, ``predict`` and ``serve`` run on ``--device``
+(default cuda; ``--device cpu`` runs the kernels' plain versions on the
+CPU); ``train`` and ``eval`` with ``dist.num_devices`` resolving to N > 1
+run N data-parallel processes, one per card (``api.train``,
+``api.evaluate``). ``serve`` is the HTTP pose server (utils/serve.py),
+the JAX package's wire protocol. ``info`` prints the reference's report,
+and on stderr the device count that ``dist.num_devices`` resolves to.
+``export``, ``render``, ``repack``, ``sweep``, ``curves`` and
+``inspect`` are not in the port yet: they exit with status 2, naming
+ROADMAP.md queue A item 11.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
     preset,
 )
 
-PORTED = ("train", "eval", "predict", "config", "presets", "info")
-LATER = ("export", "serve", "render", "repack", "sweep", "curves", "inspect")
+PORTED = ("train", "eval", "predict", "serve", "config", "presets", "info")
+LATER = ("export", "render", "repack", "sweep", "curves", "inspect")
 
 
 def _parse_value(s: str):
@@ -182,8 +185,8 @@ def main(argv=None) -> int:
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
                     help="dotted config override, repeatable")
     ap.add_argument("--device", default="cuda",
-                    help="train/eval/predict: torch device (cpu runs the "
-                         "kernels' plain versions)")
+                    help="train/eval/predict/serve: torch device (cpu runs "
+                         "the kernels' plain versions)")
     ap.add_argument("--ckpt-dir", default="", help="eval/predict: checkpoint dir")
     ap.add_argument("--step", default="0",
                     help="eval/predict: checkpoint step (0 = latest; 'best' "
@@ -208,6 +211,27 @@ def main(argv=None) -> int:
                     help="predict: trajectory figure (not in the port yet)")
     ap.add_argument("--dump-predictions", default="", metavar="NPZ",
                     help="eval: write every per-sample prediction to an npz")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="serve: the Predictor's largest batch per call")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="serve: bind address (0.0.0.0 exposes the daemon "
+                         "beyond this host)")
+    ap.add_argument("--port", type=int, default=8080,
+                    help="serve: TCP port (0 = pick a free one)")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="serve: skip the warmup call")
+    ap.add_argument("--coalesce-ms", type=float, default=0.0,
+                    help="serve: micro-batch concurrent single-obs "
+                         "requests arriving within this window into one "
+                         "device call (0 = off; try 2-5 under multi-client "
+                         "load)")
+    ap.add_argument("--max-body-mb", type=float, default=64.0,
+                    help="serve: refuse request bodies above this size "
+                         "with 413 before reading them")
+    ap.add_argument("--read-timeout-s", type=float, default=30.0,
+                    help="serve: per-connection socket timeout; a request "
+                         "stalling mid-body this long gets 408 (0 = no "
+                         "timeout)")
     # the subcommands not in the port yet take the JAX CLI's other flags;
     # they are refused before those are read
     args, rest = ap.parse_known_args(argv)
@@ -264,6 +288,30 @@ def main(argv=None) -> int:
                           drop_cameras=tuple(args.drop_camera),
                           device=args.device)
         print(json.dumps(m, indent=2))
+        return 0
+    if args.command == "serve":
+        from rgb_proprioceptive_pose_estimator_tpu_torch.utils.serve import (
+            serve,
+        )
+
+        httpd, service = serve(cfg, host=args.host, port=args.port,
+                               ckpt_dir=args.ckpt_dir or None,
+                               step=ckpt_step, max_batch=args.max_batch,
+                               warmup=not args.no_warmup,
+                               coalesce_ms=args.coalesce_ms,
+                               max_body_mb=args.max_body_mb,
+                               read_timeout_s=args.read_timeout_s or None,
+                               device=args.device)
+        print(json.dumps({"serving": f"http://{httpd.server_address[0]}:"
+                                     f"{httpd.server_address[1]}",
+                          **service.health()}), flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
+            service.close()
         return 0
     _predict(cfg, args, ckpt_step)
     return 0

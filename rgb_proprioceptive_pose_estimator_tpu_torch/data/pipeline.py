@@ -60,10 +60,14 @@ def build_dataset(cfg: Config, split: str = "all"):
     if d.source == "hdf5":
         if not d.path:
             raise ValueError("cfg.data.path required for hdf5 source")
-        if d.device_cache or d.augment_device:
-            raise NotImplementedError(
-                "data.device_cache and data.augment_device: the port "
-                "augments on the host so far (ROADMAP.md queue A, item 9b)")
+        if d.device_cache and m.backbone == "none":
+            # fit only uploads the cache for image models; a proprio-only
+            # model with device_cache would ship a dead image_idx array
+            # every batch and silently train without images
+            raise ValueError(
+                "data.device_cache requires an image backbone "
+                "(model.backbone != 'none'); a proprio-only model has no "
+                "frames to cache")
         # the HDF5 store imports h5py where it opens a file; a host that
         # trains from memory never loads it
         from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (
@@ -83,7 +87,7 @@ def build_dataset(cfg: Config, split: str = "all"):
                 max_demos = 0
                 filter_key = ""
             split, val_fraction = "all", 0.0
-        return HDF5DemoStore(
+        store = HDF5DemoStore(
             path,
             split=split,
             val_fraction=val_fraction,
@@ -99,7 +103,8 @@ def build_dataset(cfg: Config, split: str = "all"):
             target_lookahead=d.target_lookahead,
             use_proprio=m.use_proprio,
             use_native=d.use_native,
-            device_aug_hw=None,
+            device_aug_hw=(m.image_size + 2 * d.crop_margin
+                           if d.augment_device and d.augment else None),
             crop_scale=d.crop_scale,
             crop_ratio=d.crop_ratio,
             hflip_prob=d.hflip_prob,
@@ -111,8 +116,10 @@ def build_dataset(cfg: Config, split: str = "all"):
             jitter_saturation=d.jitter_saturation,
             jitter_hue=d.jitter_hue,
             jitter_prob=d.jitter_prob,
-            cache_images=None,
+            cache_images=(True if d.device_cache else None),
         )
+        store.emit_image_indices = bool(d.device_cache) and bool(store.cameras)
+        return store
     raise ValueError(f"unknown data source {d.source!r}")
 
 
@@ -131,12 +138,16 @@ class HostPipeline:
     """Infinite (train) or single-epoch (eval) iterator of device batches:
     dicts of tensors on ``device`` shaped as the dataset's ``get_batch``
     returns them; ``batch_size`` is the global batch, of which rank
-    ``rank`` of ``world`` gets its contiguous slice."""
+    ``rank`` of ``world`` gets its contiguous slice. ``shard_of_sample``
+    (the sharded device cache's sample -> shard map) with ``n_shards`` > 1
+    makes row block d of every global batch shard d's samples."""
 
     def __init__(self, dataset, cfg: DataConfig,
                  device: Union[str, torch.device] = "cpu",
                  train: bool = True, batch_size: Optional[int] = None,
-                 rank: int = 0, world: int = 1):
+                 rank: int = 0, world: int = 1,
+                 shard_of_sample: Optional[np.ndarray] = None,
+                 n_shards: int = 1):
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
@@ -152,6 +163,35 @@ class HostPipeline:
                 f"dataset size {len(dataset)} < batch size {self.batch_size}")
         self.batches_per_epoch = len(dataset) // self.batch_size
         self.augment = bool(cfg.augment) and train
+
+        # data.cache_layout="sharded": batch segment d, rank d's slice when
+        # n_shards == world, references only shard-d samples
+        self._n_shards = max(int(n_shards), 1)
+        self._samples_by_shard = None
+        if shard_of_sample is not None and self._n_shards > 1:
+            if self.batch_size % self._n_shards != 0:
+                raise ValueError(
+                    f"batch size {self.batch_size} not divisible by "
+                    f"{self._n_shards} cache shards")
+            shard_of_sample = np.asarray(shard_of_sample)
+            if len(shard_of_sample) != len(dataset):
+                raise ValueError(
+                    f"shard_of_sample covers {len(shard_of_sample)} samples "
+                    f"!= dataset size {len(dataset)}")
+            self._samples_by_shard = [
+                np.flatnonzero(shard_of_sample == d)
+                for d in range(self._n_shards)]
+            per = self.batch_size // self._n_shards
+            # an epoch is bounded by the smallest shard; per-shard
+            # reshuffles rotate any dropped tail across epochs
+            self.batches_per_epoch = min(
+                len(s) for s in self._samples_by_shard) // per
+            if self.batches_per_epoch < 1:
+                raise ValueError(
+                    "smallest cache shard has "
+                    f"{min(len(s) for s in self._samples_by_shard)} samples "
+                    f"< {per} per-device batch; reduce data.batch_size or "
+                    "device count (data.cache_layout='sharded')")
 
         self._consumed = 0            # global batch counter (checkpoint state)
         self._scheduled = 0
@@ -173,7 +213,9 @@ class HostPipeline:
         (in-flight batches straddle at most two)."""
         perm = self._perm_cache.get(epoch)
         if perm is None:
-            if self.train and self.cfg.shuffle:
+            if self._samples_by_shard is not None:
+                perm = self._sharded_perm(epoch)
+            elif self.train and self.cfg.shuffle:
                 perm = np.random.RandomState(
                     (self.cfg.seed + epoch) % (2 ** 31 - 1)
                 ).permutation(len(self.dataset))
@@ -183,6 +225,27 @@ class HostPipeline:
                                 if k >= epoch - 1}
             self._perm_cache[epoch] = perm
         return perm
+
+    def _sharded_perm(self, epoch: int) -> np.ndarray:
+        """Epoch index stream of the sharded cache layout: every shard's
+        samples permuted independently (a stream per (seed, epoch, shard)),
+        cut to the epoch's per-shard sample count, and interleaved
+        shard-major, so that batch row block d is shard d's next ``per``
+        samples. Eval pipelines (no shuffle) interleave the natural
+        per-shard order."""
+        per = self.batch_size // self._n_shards
+        e = self.batches_per_epoch
+        cols = []
+        for d, samp in enumerate(self._samples_by_shard):
+            if self.train and self.cfg.shuffle:
+                rs = np.random.RandomState(
+                    ((self.cfg.seed + epoch) * 9_973 + d) % (2 ** 31 - 1))
+                samp = rs.permutation(samp)
+            cols.append(samp[:e * per])
+        return (np.stack(cols)                      # (D, e*per)
+                .reshape(self._n_shards, e, per)
+                .transpose(1, 0, 2)                 # (e, D, per)
+                .reshape(-1))
 
     def _indices_for(self, global_batch: int) -> np.ndarray:
         epoch, pos = divmod(global_batch, self.batches_per_epoch)
@@ -271,7 +334,11 @@ class HostPipeline:
     def state_dict(self) -> Dict[str, Any]:
         return {"format": self.STATE_FORMAT, "consumed": int(self._consumed),
                 "seed": int(self.cfg.seed),
-                "batch_size": int(self.batch_size), "n_shards": 1}
+                "batch_size": int(self.batch_size),
+                # the sharded cache's index stream depends on the shard
+                # partition, which depends on the device count
+                "n_shards": (self._n_shards
+                             if self._samples_by_shard is not None else 1)}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         fmt = int(state.get("format", 1))
@@ -286,9 +353,16 @@ class HostPipeline:
             raise ValueError(
                 f"cannot resume: checkpoint sampler seed {saved_seed} != "
                 f"config data.seed {self.cfg.seed}")
-        if int(state.get("n_shards", 1)) != 1:
-            raise ValueError("cannot resume a sharded-cache sampler state "
-                             "in the port (one device)")
+        cur_shards = (self._n_shards
+                      if self._samples_by_shard is not None else 1)
+        saved_shards = int(state.get("n_shards", 1))
+        if saved_shards != cur_shards:
+            raise ValueError(
+                f"cannot resume: checkpoint sampler used {saved_shards} "
+                f"cache shard(s), this run has {cur_shards} -- the sharded "
+                "cache index stream depends on the device count "
+                "(data.cache_layout='sharded'); resume on the same mesh "
+                "size or start a fresh run")
         self._consumed = int(state["consumed"])
         self._reset()
 

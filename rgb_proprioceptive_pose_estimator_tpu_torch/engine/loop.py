@@ -34,9 +34,15 @@ early stopping, and lets rank 0 alone write checkpoints and metrics. The
 global batch must divide by N; ``bn_stats="pallas"`` is refused on N > 1
 as in the reference.
 
-Not in the port yet, and refused rather than ignored
-(``check_fit_supported``): the device-resident data options (ROADMAP.md
-queue A, item 9b).
+The device-resident data path: with ``data.device_cache`` the resized
+uint8 frames of the train split (at ``image_size + 2*crop_margin`` under
+``data.augment_device``) and of the eval split are uploaded to the device
+once (``upload_image_cache``, refused before allocating when they exceed
+``device_cache_budget``), the pipelines send int32 frame indices, and the
+steps gather the frames; ``data.cache_layout="sharded"`` gives each rank
+only its shard of the frames (data/cache_shard.py). With
+``data.augment_device`` crop, flip and jitter run in the step on the
+device (engine/train_step.prepare_batch), in BN recalibration too.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import threading
 import time
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config
@@ -61,7 +68,9 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
     serving,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.engine.train_step import (
+    device_aug_of,
     eval_step,
+    gather_cached_images,
     recalibrate_batch_stats,
     train_step,
 )
@@ -74,17 +83,70 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.utils.metrics import MetricsLog
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils.prof import TraceWindow
 
 
+def device_cache_budget() -> int:
+    """Device memory (bytes) the frame cache may take: 3/4 of the card's
+    (torch.cuda.mem_get_info's total), leaving the rest for the model,
+    the optimizer and the activations, which this guard does not count;
+    12 GB without a card."""
+    if torch.cuda.is_available():
+        return (torch.cuda.mem_get_info()[1] * 3) // 4
+    return 12 * 1024 ** 3
+
+
+def upload_image_cache(store, hw: int, device: torch.device,
+                       budget_bytes: int = 0, skip_cameras=(), plan=None,
+                       rank: int = 0) -> Dict[str, torch.Tensor]:
+    """data.device_cache: the store's deterministic resize cache at
+    ``hw``, {camera: (rows, hw, hw, 3) uint8} on ``device``. Raises
+    ValueError, before anything is allocated on the device, when it
+    exceeds ``budget_bytes`` (default ``device_cache_budget()``).
+
+    skip_cameras: cameras left out of the upload and the budget
+    (evaluate's drop_cameras, scored dead; the gather then never makes
+    them).
+
+    plan (data/cache_shard.CacheShardPlan, data.cache_layout="sharded"):
+    rank ``rank`` uploads and budgets only its shard, rows [rank*S,
+    (rank+1)*S) of the plan's shard-contiguous layout, which the indices
+    that the store emits under the plan address. Default: every frame."""
+    skip = set(skip_cameras)
+    base = store.build_resized_cache(hw)
+    rows = None
+    if plan is not None:
+        s = plan.rows_per_shard
+        rows = plan.frame_of_row[rank * s:(rank + 1) * s]
+    arrs = {c: (a if rows is None else a[rows]) for c, a in base.items()
+            if c not in skip}
+    per_device = sum(a.nbytes for a in arrs.values())
+    budget = budget_bytes or device_cache_budget()
+    if per_device > budget:
+        raise ValueError(
+            f"data.device_cache: resized frames need {per_device / 1e9:.1f} "
+            f"GB of device memory per device > {budget / 1e9:.1f} GB budget "
+            "(75% of device capacity; excludes model/optimizer/activation "
+            "memory); "
+            + ("use the host pipeline for datasets this size" if plan
+               else "try data.cache_layout='sharded' on several devices, "
+                    "or the host pipeline"))
+    return {c: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for c, a in arrs.items()}
+
+
 def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
                       cfg: Config, max_batches: int = 0, start: int = 0,
-                      drop_cameras: Sequence[str] = ()) -> Dict[str, float]:
+                      drop_cameras: Sequence[str] = (),
+                      image_cache: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, float]:
     """Average eval metrics over (up to) one epoch; ``start`` rotates
     partial passes across the split (HostPipeline.epoch). ``drop_cameras``
-    are removed from every batch: scored as dead sensors. A pipeline of
-    a rank's slices gives each global batch's metrics, averaged over the
-    ranks."""
+    are removed from every batch: scored as dead sensors. Batches of
+    frame indices gather from ``image_cache``. A pipeline of a rank's
+    slices gives each global batch's metrics, averaged over the ranks."""
     sums: Dict[str, float] = {}
     n = 0
     for batch in pipeline.epoch(max_batches=max_batches, start=start):
+        if image_cache is not None and "image_idx" in batch:
+            batch = gather_cached_images(image_cache, batch)
         if drop_cameras:
             batch = dict(batch, images={k: v for k, v in
                                         batch["images"].items()
@@ -99,11 +161,12 @@ def evaluate_pipeline(model: torch.nn.Module, pipeline: HostPipeline,
 
 
 def check_fit_supported(cfg: Config, n_dev: int = 1) -> None:
-    """Raise, as the reference's fit does, for a global batch that
-    ``n_dev`` devices do not divide, for ``bn_stats="pallas"`` on more
-    than one, for early stopping without evals and for both warm starts
-    at once (ValueError), and NotImplementedError, naming its ROADMAP.md
-    item, for each option of the JAX package's fit that the port lacks."""
+    """Raise ValueError, as the reference's fit does, for a global batch
+    that ``n_dev`` devices do not divide, for ``bn_stats="pallas"`` on
+    more than one, for early stopping without evals and for both warm
+    starts at once. The config itself refuses data.device_cache with
+    host augmentation or a non-hdf5 source, and a sharded layout without
+    the cache."""
     t, m, d = cfg.train, cfg.model, cfg.data
     dist.check_multihost(cfg)
     if d.batch_size % n_dev != 0:
@@ -127,15 +190,6 @@ def check_fit_supported(cfg: Config, n_dev: int = 1) -> None:
             "train.init_from and train.init_from_torch are mutually "
             "exclusive: a full-run warm start already carries its own "
             "backbone weights")
-    later = {
-        "data.device_cache": (d.device_cache, "9b"),
-        "data.augment_device": (d.augment_device, "9b"),
-    }
-    for name, (used, item) in later.items():
-        if used:
-            raise NotImplementedError(
-                f"{name}: not in the port yet (ROADMAP.md queue A, item "
-                f"{item})")
 
 
 def fit(cfg: Config, device: torch.device) -> Dict[str, Any]:
@@ -290,7 +344,10 @@ def _resume_step(cfg: Config) -> Optional[int]:
 def train_on(cfg: Config, state: TrainState, dataset, eval_ds
              ) -> Dict[str, Any]:
     """Train ``state`` on ``dataset`` (any object with the datasets'
-    ``__len__``, ``get_batch`` and ``proprio_stats``) for train.steps,
+    ``__len__``, ``get_batch`` and ``proprio_stats``; with
+    data.device_cache also the store's ``build_resized_cache``,
+    ``frames_per_demo``, ``sample_demos``, ``emit_image_indices`` and
+    ``cache_plan``) for train.steps,
     evaluating on ``eval_ds``. Returns {state, model, metrics, ckpt_dir,
     ckpt_path}: the last logged train metrics with the last eval's under
     ``eval_*``, and the final checkpoint's path."""
@@ -345,8 +402,34 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
 
     if world > 1 and state.ddp is None:
         state.ddp = dist.data_parallel(model)
+    # data.cache_layout="sharded": the plans exist before the pipelines
+    # (the sampler gives rank d shard d's samples) and before the stores
+    # emit indices (rows of the rank's shard)
+    use_cache = (cfg.data.device_cache and cfg.model.backbone != "none"
+                 and cfg.data.source == "hdf5")
+    sharded = use_cache and cfg.data.cache_layout == "sharded"
+    train_plan = eval_plan = None
+    if sharded:
+        from rgb_proprioceptive_pose_estimator_tpu_torch.data.cache_shard import (
+            build_shard_plan,
+        )
+
+        train_plan = build_shard_plan(dataset.frames_per_demo(), world)
+        eval_plan = (train_plan if eval_ds is dataset
+                     else build_shard_plan(eval_ds.frames_per_demo(), world))
+    if use_cache:
+        dataset.cache_plan = train_plan
+        eval_ds.cache_plan = eval_plan
+
+    def shard_args(ds, plan) -> Dict[str, Any]:
+        if plan is None:
+            return {}
+        return {"shard_of_sample": plan.shard_of_sample(ds.sample_demos()),
+                "n_shards": world}
+
     train_pipe = HostPipeline(dataset, cfg.data, device=device, train=True,
-                              rank=rank, world=world)
+                              rank=rank, world=world,
+                              **shard_args(dataset, train_plan))
     if resume is not None:
         train_pipe.load_state_dict(training["pipeline"])
     # the eval batch shrinks to a small held-out split, still a multiple
@@ -357,7 +440,21 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
             f"val split has {len(eval_ds)} samples < {world} devices; "
             "increase data.val_fraction or reduce dist.num_devices")
     eval_pipe = HostPipeline(eval_ds, cfg.data, device=device, train=False,
-                             batch_size=eval_bs, rank=rank, world=world)
+                             batch_size=eval_bs, rank=rank, world=world,
+                             **shard_args(eval_ds, eval_plan))
+    device_aug = device_aug_of(cfg)
+    train_cache = eval_cache = None
+    if use_cache:
+        hw_train = (cfg.model.image_size + 2 * cfg.data.crop_margin
+                    if device_aug is not None else cfg.model.image_size)
+        train_cache = upload_image_cache(dataset, hw_train, device,
+                                         plan=train_plan, rank=rank)
+        if eval_ds is dataset and hw_train == cfg.model.image_size:
+            eval_cache = train_cache
+        else:
+            eval_cache = upload_image_cache(eval_ds, cfg.model.image_size,
+                                            device, plan=eval_plan,
+                                            rank=rank)
     schedule = state.optimizer.schedule
     metrics_path = tcfg.metrics_path or f"{tcfg.ckpt_dir}/metrics.jsonl"
     # rank 0 writes the metrics, as it writes the checkpoints
@@ -393,7 +490,7 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
             return recalibrate_batch_stats(
                 model, (next(train_pipe)
                         for _ in range(tcfg.ema_bn_recal_batches)),
-                tcfg.seed)
+                tcfg.seed, train_cache, device_aug)
 
     # as the reference: whenever the model has statistics (BatchNorm's, or
     # proprio normalization's, which a train-mode forward leaves as they
@@ -434,7 +531,8 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
     try:
         for step_i in range(start_step, tcfg.steps, spc):
             for _ in range(spc):
-                m = train_step(state, next(train_pipe), tcfg)
+                m = train_step(state, next(train_pipe), tcfg, train_cache,
+                               device_aug)
             step1 = step_i + spc
             tracer.on_step(step1)
             if step_i == start_step and tcfg.log_every > 1:
@@ -466,7 +564,8 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                 with serving(model, state.ema, stats):
                     em = evaluate_pipeline(model, eval_pipe, cfg,
                                            max_batches=tcfg.eval_steps,
-                                           start=eval_start)
+                                           start=eval_start,
+                                           image_cache=eval_cache)
                 logger.log(step1, em, prefix="eval/")
                 last_metrics.update({f"eval_{k}": v for k, v in em.items()})
                 if tcfg.ckpt_best_metric:

@@ -35,6 +35,16 @@ The model's randomness in training (camera dropout) comes from a
 as the JAX package folds the step into its dropout key: a resumed run
 draws the same masks as a straight one.
 
+The device-resident data path (``data.device_cache``,
+``data.augment_device``): a batch that carries ``image_idx`` instead of
+images gets its frames by an ``index_select`` of the uint8 cache on the
+device (``gather_cached_images``; under the sharded layout the indices
+are rows of the rank's own shard, so the gather is local with no
+collective), then, with ``data.augment_device``, crop, flip and jitter on
+the device (ops/image_augment_device.py), drawn from a stream of its own
+per step, apart from dropout's, as the reference keeps ``fold_in(rng,
+step)`` apart from ``fold_in(fold_in(rng, 1), step)``.
+
 On a rank of a data-parallel group the step runs the state's
 DistributedDataParallel wrapper: each rank's loss is the mean over its
 equal share of the global batch, and DDP averages the gradients, so the
@@ -59,6 +69,9 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
 from rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose import (
     pose_loss,
     pose_metrics,
+)
+from rgb_proprioceptive_pose_estimator_tpu_torch.ops import (
+    image_augment_device as ida,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
@@ -266,6 +279,21 @@ def _generator(seed: int, stream: int, count: int,
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
+def aug_generator(seed: int, step: int,
+                  device: torch.device) -> torch.Generator:
+    """The device augmentation's random stream of train step ``step``
+    (the reference's ``fold_in(rng, step)``)."""
+    return _generator(seed, 0, step, device)
+
+
+def recal_aug_generator(seed: int, batch: int,
+                        device: torch.device) -> torch.Generator:
+    """The device augmentation's random stream of BN recalibration
+    forward ``batch`` (the reference's ``fold_in(fold_in(rng, 2),
+    salt)``)."""
+    return _generator(seed, 2, batch, device)
+
+
 def dropout_generator(seed: int, step: int,
                       device: torch.device) -> torch.Generator:
     """The model's random stream of train step ``step`` of a run seeded
@@ -280,6 +308,66 @@ def recal_generator(seed: int, batch: int,
     """The model's random stream of BN recalibration forward ``batch``
     (the reference's ``fold_in(fold_in(rng, 3), salt)``)."""
     return _generator(seed, 3, batch, device)
+
+
+def device_aug_of(cfg: Config) -> Optional[Dict]:
+    """The device augmentation's arguments (``augment_batch_images``'s
+    keywords) when data.augment_device and data.augment are on for an
+    image model, else None."""
+    d, m = cfg.data, cfg.model
+    if not (d.augment_device and d.augment and m.backbone != "none"):
+        return None
+    return {"cameras": tuple(m.cameras), "out_hw": m.image_size,
+            "hflip_prob": d.hflip_prob,
+            "hflip_pose_mirror": d.hflip_pose_mirror,
+            "hflip_mirror_axis": d.hflip_mirror_axis,
+            "hflip_mirror_center": d.hflip_mirror_center,
+            "jitter_brightness": d.jitter_brightness,
+            "jitter_contrast": d.jitter_contrast,
+            "jitter_saturation": d.jitter_saturation,
+            "jitter_hue": d.jitter_hue, "jitter_prob": d.jitter_prob,
+            "crop_scale": tuple(d.crop_scale),
+            "crop_ratio": tuple(d.crop_ratio)}
+
+
+def gather_cached_images(image_cache: Dict[str, torch.Tensor],
+                         batch: Dict) -> Dict:
+    """data.device_cache: the batch's frames, gathered from the
+    device-resident uint8 cache by its int32 ``image_idx`` ((n,) or (n,
+    T)), which leaves the batch. Only the cached cameras are gathered
+    (evaluate leaves its dropped cameras out of the cache)."""
+    idx = batch["image_idx"]
+    out = {k: v for k, v in batch.items() if k != "image_idx"}
+    flat = idx.reshape(-1)
+    out["images"] = {
+        cam: arr.index_select(0, flat).reshape(tuple(idx.shape)
+                                               + tuple(arr.shape[1:]))
+        for cam, arr in image_cache.items()}
+    return out
+
+
+def augment_on_device(batch: Dict, device_aug: Dict,
+                      generator: torch.Generator) -> Dict:
+    """``device_aug``'s augmentation of ``batch`` with draws from
+    ``generator``; on a rank of a group, the global batch's draws and
+    the rank's rows of them."""
+    b = batch["images"][device_aug["cameras"][0]].shape[0]
+    draws = ida.draw_batch_aug(generator, batch, first=dist.rank() * b,
+                               rows=dist.world() * b, **device_aug)
+    return ida.augment_batch_images(batch, draws, **device_aug)
+
+
+def prepare_batch(batch: Dict, image_cache: Optional[Dict] = None,
+                  device_aug: Optional[Dict] = None,
+                  generator: Optional[torch.Generator] = None) -> Dict:
+    """The batch the model takes: frames gathered from ``image_cache``
+    when the batch carries indices, then augmented on the device with
+    ``device_aug`` from ``generator`` when that is set."""
+    if image_cache is not None and "image_idx" in batch:
+        batch = gather_cached_images(image_cache, batch)
+    if device_aug is not None:
+        batch = augment_on_device(batch, device_aug, generator)
+    return batch
 
 
 def uses_dropout(cfg: ModelConfig) -> bool:
@@ -350,17 +438,24 @@ def update_ema(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
     torch._foreach_add_(averages, params, alpha=1.0 - decay)
 
 
-def train_step(state, batch: Dict, cfg: TrainConfig
+def train_step(state, batch: Dict, cfg: TrainConfig,
+               image_cache: Optional[Dict[str, torch.Tensor]] = None,
+               device_aug: Optional[Dict] = None
                ) -> Dict[str, torch.Tensor]:
     """One call of the reference's train step on ``state``
     (engine/state.TrainState): a micro-step of ``train.grad_accum`` (an
-    optimizer step when it is 1) on ``batch``; returns the step's metrics
-    as device tensors."""
+    optimizer step when it is 1) on ``batch`` (its frames gathered from
+    ``image_cache`` and augmented with ``device_aug`` first, as
+    ``prepare_batch`` does); returns the step's metrics as device
+    tensors."""
     model, opt = state.model, state.optimizer
+    dev = next(model.parameters()).device
+    batch = prepare_batch(
+        batch, image_cache, device_aug,
+        aug_generator(cfg.seed, state.step, dev) if device_aug else None)
     generator = None
     if uses_dropout(model.cfg):
-        generator = dropout_generator(cfg.seed, state.step,
-                                      next(model.parameters()).device)
+        generator = dropout_generator(cfg.seed, state.step, dev)
     runner = model if state.ddp is None else state.ddp
     sync = (contextlib.nullcontext() if state.ddp is None or opt.applies
             else state.ddp.no_sync())
@@ -390,7 +485,10 @@ def train_step(state, batch: Dict, cfg: TrainConfig
 
 @torch.no_grad()
 def recalibrate_batch_stats(model: torch.nn.Module, batches: Iterable[Dict],
-                            seed: int) -> Dict[str, torch.Tensor]:
+                            seed: int,
+                            image_cache: Optional[Dict] = None,
+                            device_aug: Optional[Dict] = None
+                            ) -> Dict[str, torch.Tensor]:
     """BatchNorm running statistics for ``model``'s weights (torch
     ``swa_utils.update_bn``, the reference's ``recalibrate_batch_stats``):
     a train-mode forward of each batch of ``batches``, each from the
@@ -398,7 +496,9 @@ def recalibrate_batch_stats(model: torch.nn.Module, batches: Iterable[Dict],
     statistic as ``(new - m * old) / (1 - m)``; the result is their
     cumulative average, as ``{state_dict key: tensor}``. The model's
     statistics are left as they were. On a rank of a group the forwards'
-    statistics are the global batch's."""
+    statistics are the global batch's. Each batch goes through
+    ``prepare_batch`` with ``image_cache`` and ``device_aug``, drawn from
+    recalibration's own stream."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import (
         BatchNormAct,
     )
@@ -414,6 +514,9 @@ def recalibrate_batch_stats(model: torch.nn.Module, batches: Iterable[Dict],
     model.train()
     try:
         for i, batch in enumerate(batches):
+            batch = prepare_batch(
+                batch, image_cache, device_aug,
+                recal_aug_generator(seed, i, dev) if device_aug else None)
             generator = (recal_generator(seed, i, dev)
                          if uses_dropout(model.cfg) else None)
             model(batch, generator=generator)

@@ -1,8 +1,9 @@
 """Quaternion math of the serving and training paths (counterpart of the
 JAX package's ``ops/pose_math.py``): normalization, the distances the
-losses and metrics use, and the rotation matrix and continuous 6D forms
-of the rot6d head. The rest of that module (products, mirroring) comes in
-a later slice.
+losses and metrics use, the rotation matrix and continuous 6D forms
+of the rot6d head, and the pose mirror of device augmentation's label-
+consistent flip. The rest of that module (products) comes in a later
+slice.
 
 Every distance depends only on <q, q'>, so it is invariant to the storage
 convention and to the antipodal sign q ~ -q.
@@ -25,6 +26,23 @@ def _soft_normalize(v: torch.Tensor, eps: float) -> torch.Tensor:
     the exact norm to f32 precision."""
     sq = torch.sum(v * v, dim=-1, keepdim=True)
     return v / torch.sqrt(sq + eps * eps)
+
+
+def mirror_pose(pos: torch.Tensor, quat: torch.Tensor, axis: int = 0,
+                center: float = 0.0):
+    """Reflect a pose across the plane {x_axis = center} (normal along
+    ``axis``): the label transform matching a horizontal image flip.
+    Position: component ``axis`` reflects about ``center``. Orientation:
+    R' = M.R.M, whose quaternion (w, x, y, z) keeps w and v_axis and
+    negates the other two vector components."""
+    pos_sign = torch.ones(3, dtype=pos.dtype, device=pos.device)
+    pos_sign[axis] = -1.0
+    pos_off = torch.zeros(3, dtype=pos.dtype, device=pos.device)
+    pos_off[axis] = 2.0 * center
+    quat_sign = -torch.ones(4, dtype=quat.dtype, device=quat.device)
+    quat_sign[0] = 1.0
+    quat_sign[1 + axis] = 1.0
+    return pos * pos_sign + pos_off, quat * quat_sign
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

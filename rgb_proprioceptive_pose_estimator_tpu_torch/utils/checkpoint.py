@@ -56,13 +56,19 @@ def save(path: str, cfg: Config, state_dict: Dict[str, torch.Tensor],
     os.replace(tmp, path)
 
 
+def served(state_dict: Dict[str, torch.Tensor],
+           training: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+    """The state_dict a checkpoint serves: its parameters are the EMA's
+    where its training state has one."""
+    ema = (training or {}).get("ema")
+    return state_dict if ema is None else {**state_dict, **ema}
+
+
 def load(path: str) -> Tuple[Config, Dict[str, torch.Tensor]]:
     """(config, the state_dict it serves, on the CPU) from a checkpoint
-    written by save: its parameters are the EMA's where the checkpoint
-    has one."""
+    written by save."""
     cfg, state_dict, training = load_training(path)
-    ema = (training or {}).get("ema")
-    return cfg, state_dict if ema is None else {**state_dict, **ema}
+    return cfg, served(state_dict, training)
 
 
 def load_training(path: str

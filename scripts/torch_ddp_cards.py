@@ -9,7 +9,11 @@ process.
 pr3 in f32 on both BN statistics routes (at 32 px and batch 16 on the
 CPU): chip_smoke.py's ``phase_ddp_pr3`` with one rank per device (three
 SGD steps against one process: losses, the update, running statistics,
-replicas bit for bit, launches per rank). Then training across hosts
+replicas bit for bit, launches per rank). Then the sharded device cache
+(``data.cache_layout="sharded"``): chip_smoke.py's
+``phase_sharded_cache`` with one rank per device, each holding its shard
+of the frames alone, pr3 against one process fed the same global
+batches. Then training across hosts
 (``dist.multihost``): two host processes of N/2 ranks each, on the
 cards CUDA_VISIBLE_DEVICES gives each (0..N/2-1 and N/2..N-1; on the CPU
 N/2 processes each), over NCCL (gloo on the CPU): chip_smoke.py's
@@ -54,6 +58,10 @@ def main() -> int:
                               seed=4)
         cs.phase_ddp_pr3(cfg, dev, smi, data, dist.rank_devices(dev, n),
                          dist.default_backend(dev))
+    with tempfile.TemporaryDirectory() as root:
+        cs.phase_sharded_cache(rppt, dev, smi, root,
+                               dist.rank_devices(dev, n),
+                               dist.default_backend(dev), **small)
     half = n // 2
     hosts = [([str(d) for d in dist.rank_devices(dev, half)],
               None if kind == "cpu" else

@@ -824,10 +824,25 @@ def test_proprio_dropout_rate_and_scale_in_training():
 
 
 def test_only_the_device_data_options_are_refused_naming_item_9b():
-    for name in ("data.device_cache", "data.augment_device"):
-        _, cfg = _cfgs(**{name: True, "data.augment": False})
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            loop.check_fit_supported(cfg)
+    """Item 9b is ported: both device data options pass
+    check_fit_supported, and the config's own refusals still raise."""
+    for over in ({"data.device_cache": True, "data.augment": False},
+                 {"data.augment_device": True},
+                 {"data.device_cache": True, "data.augment_device": True},
+                 {"data.device_cache": True, "data.augment": False,
+                  "data.cache_layout": "sharded"}):
+        _, cfg = _cfgs(**{"data.source": "hdf5", "data.path": "x.hdf5",
+                          **over})
+        loop.check_fit_supported(cfg)
+    for over, match in (
+            ({"data.device_cache": True, "data.augment": True},
+             "augmentation must run on device"),
+            ({"data.device_cache": True, "data.augment": False,
+              "data.source": "synthetic"}, "hdf5 image source only"),
+            ({"data.cache_layout": "sharded"},
+             "requires data.device_cache")):
+        with pytest.raises(ValueError, match=match):
+            _cfgs(**{"data.source": "hdf5", "data.path": "x.hdf5", **over})
     _, cfg = _cfgs(**{"train.grad_accum": 2, "train.ema_decay": 0.9,
                       "train.ema_bn_recal_batches": 1,
                       "train.flat_optimizer": True, "train.debug_nans": True,

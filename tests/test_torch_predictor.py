@@ -148,9 +148,15 @@ def test_port_imports_no_jax():
         "import rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused_bn\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.parallel.dist\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.data.cache_shard\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.ops.image_augment_device\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.obs_buffer\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.serve\n"
         "ref = 'rgb_proprioceptive_pose_estimator_tpu'\n"
-        "# the card's host has no h5py; optax is the JAX package's optimizer\n"
-        "banned = ('jax', 'flax', 'optax', 'h5py')\n"
+        "# the card's host has no h5py and may have no OpenCV (the server\n"
+        "# imports it to decode jpeg/png alone); optax is the JAX package's\n"
+        "# optimizer\n"
+        "banned = ('jax', 'flax', 'optax', 'h5py', 'cv2')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in banned\n"
         "             or m == ref or m.startswith(ref + '.'))\n"
