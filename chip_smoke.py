@@ -105,7 +105,24 @@ Phases, one or more lines each, and the last line is the result:
    above: answers equal to the in-process Predictor bit for bit, a pr5
    session through a lost camera, a 413 and a 400, p50/p90 a request at
    1 client and at 8 coalesced within 2 ms;
-18. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
+18. the ViT backbone (models/vit.py): pr3 with model.backbone="vit" at
+   the ModelConfig defaults (dim 384, depth 6, 6 heads, mean pooling, 64
+   tokens at 128x128): serving in f32 and bf16 at batch 1, 8 and 128
+   against the CPU (one normalize_u8 a forward, no BN-ReLU site),
+   attention as its own kernel group with the SDPA kernels named; one f32
+   step against the CPU, 16 f32 and 8 bf16 steps at batch 128, a resume
+   bit for bit (deterministic cuDNN, math attention), evaluate_on against
+   the CPU; then vit_b_16's widths (dim 768, depth 12, 12 heads, a class
+   token, 224x224) in bf16: serving at batch 8 and 128, weights through
+   train.init_from_torch from a seeded torchvision-named state_dict
+   (held on the card), 8 steps at batch 128;
+19. serving artifacts (utils/export.py) of pr3's and the ViT's f32
+   checkpoints in f32 and int8 at batch 8, each loaded in a fresh process
+   that has the artifact alone: K1 and K2 launches counted there, f32
+   against the Predictor, int8 against f32, bytes and p50 against the
+   Predictor's; a pr1 sweep (utils/sweep.py) of two runs, whose second
+   call trains nothing;
+20. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
    sites; launches summed over every main path, the ranks' included),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
@@ -293,6 +310,24 @@ SHARD_SAMPLES, SHARD_EPISODE = 1024, 64
 SERVE_REQUESTS, SERVE_MAX_BODY_MB, SERVE_FRAMES = 20, 1.0, 6
 SERVE_CLIENTS, SERVE_COALESCE_MS, SERVE_ROUNDS = 8, 2.0, 4
 SERVE_COALESCED_REL = BF16_REL
+# the ViT backbone: pr3 with model.backbone="vit" at the ModelConfig
+# defaults (patch 16, dim 384, depth 6, 6 heads, mean pooling: 64 tokens at
+# 128x128), and at vit_b_16's widths (dim 768, depth 12, 12 heads, a class
+# token: 197 tokens at 224x224), the latter from a torchvision-named
+# state_dict made from a seed (train.init_from_torch), bf16
+VIT = {"model.backbone": "vit"}
+VIT_B16 = {"model.backbone": "vit", "model.vit_dim": 768,
+           "model.vit_depth": 12, "model.vit_heads": 12,
+           "model.vit_pool": "cls", "model.image_size": 224}
+# the ViT's 8 bf16 steps in two calls, so that the second call's 4 are
+# timed and profiled
+VIT_BF16_CALLS = {"train.steps_per_call": 4, "train.log_every": 4}
+# serving artifacts (utils/export.py) at batch 8, loaded in a fresh
+# process: f32 against the Predictor within the reference's rtol 1e-5,
+# atol 1e-6 (tests/test_export.py); int8 positions within 0.05 of the f32
+# artifact's, |<q8, q32>| within 0.01 of 1; latency over EXPORT_ITERS
+EXPORT_MAX_BATCH, EXPORT_RTOL, EXPORT_ATOL = 8, 1e-5, 1e-6
+INT8_POS_ATOL, INT8_QUAT_ATOL, EXPORT_ITERS = 0.05, 0.01, 30
 
 
 class SmokeFailure(RuntimeError):
@@ -944,6 +979,7 @@ def latency_ms(pred, obs, iters=30):
 
 FOLD_GROUP = "reduction fold (stage 2)"
 OTHER_GROUP = "other elementwise/reduction"
+ATTENTION_GROUP = "attention (SDPA)"
 
 
 def _kernel_group(name: str) -> str:
@@ -962,13 +998,19 @@ def _kernel_group(name: str) -> str:
     if "Memcpy" in name or "Memset" in name:
         return "copies"
     low = name.lower()
+    if any(k in low for k in ("flash", "fmha", "attention", "sdpa")):
+        return ATTENTION_GROUP
     if any(k in low for k in ("adam", "multi_tensor", "foreach")):
         return "optimizer"
-    if any(k in low for k in ("conv", "fprop", "xmma", "implicit", "dgrad",
-                              "wgrad", "nhwc", "nchw", "cudnn")):
+    if any(k in low for k in ("conv", "fprop", "implicit", "dgrad", "wgrad",
+                              "nhwc", "nchw")):
         return "convolution (cuDNN)"
-    if "gemm" in low or "gemv" in low:
+    # cuBLAS's and cuBLASLt's (nvjet) matmul kernels, whose names may also
+    # carry xmma
+    if any(k in low for k in ("gemm", "gemv", "nvjet")):
         return "matmul"
+    if "xmma" in low or "cudnn" in low:
+        return "convolution (cuDNN)"
     return OTHER_GROUP
 
 
@@ -987,7 +1029,7 @@ def device_breakdown(run, iters):
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
-    groups, other = {}, {}
+    groups, other, attention = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -998,9 +1040,18 @@ def device_breakdown(run, iters):
         groups[g] = groups.get(g, 0.0) + us
         if g == OTHER_GROUP:
             other[e.key[:100]] = other.get(e.key[:100], 0.0) + us
+        if g == ATTENTION_GROUP:
+            attention[e.key[:160]] = attention.get(e.key[:160], 0.0) + us
     busy = sum(groups.values())
     if busy <= 0:
         return None
+    if attention:
+        # which backend scaled_dot_product_attention took, by its kernels
+        share = sum(attention.values()) / busy
+        print(f"profile: {ATTENTION_GROUP} kernels, ms per call "
+              f"{json.dumps({k: round(us / iters / 1e3, 4) for k, us in attention.items()})}"
+              f"; attention's share of the device busy time {share:.4f}",
+              flush=True)
     per_call = {g: round(us / iters / 1e3, 4) for g, us in
                 sorted(groups.items(), key=lambda kv: -kv[1])}
     top = {k: round(us / iters / 1e3, 4) for k, us in
@@ -1009,19 +1060,22 @@ def device_breakdown(run, iters):
 
 
 def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
-                  cpu_batches=(1, 8, BATCH), dead=()):
-    """The ``name`` preset's Predictor at full width with seed-0 weights,
-    in f32 and bf16, answering requests of ``batches`` and, for each (n,
+                  cpu_batches=(1, 8, BATCH), dead=(), overrides=None,
+                  label=None, dtypes=("float32", "bfloat16")):
+    """The ``name`` preset's Predictor (with dotted ``overrides``, printed
+    as ``label``) at full width with seed-0 weights, in each of
+    ``dtypes``, answering requests of ``batches`` and, for each (n,
     camera) of ``dead``, of n with that camera left out: launch counts,
     agreement with the CPU in f32 at ``cpu_batches`` (request keys), latency
-    and device time by kernel group. Returns the f32 run's launch
+    and device time by kernel group. Returns the first dtype's launch
     counts."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
         random_jax_variables,
         state_dict_from_jax,
     )
 
-    cfg = rppt.preset(name)
+    cfg = rppt.preset(name).override(**(overrides or {}))
+    name = label or name
     m = cfg.model
     frames = (f", {m.temporal_frames} frames per camera ({m.temporal_mode})"
               if m.temporal_frames > 1 else "")
@@ -1048,15 +1102,15 @@ def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
           f"{time.perf_counter() - t:.2f} s", flush=True)
     del cpu
 
-    launches = {}
-    for dtype in ("float32", "bfloat16"):
+    launches = None
+    for dtype in dtypes:
         c = cfg.override(**{"model.dtype": dtype})
         pred = rppt.Predictor(c, state_dict=state_dict,
                               max_batch=max(map(request_size, reqs)))
         pred.warmup()
         label = f"{name} {dtype}"
         answers, counts = drive(pred, reqs, fused, label)
-        if dtype == "float32":
+        if launches is None:
             launches = counts
         check_shapes(answers, label)
         for n in cpu_batches:
@@ -1085,11 +1139,13 @@ def phase_serving(rppt, fused, smi, name="pr3", batches=(1, 8, BATCH),
                       "device time (not measured)", flush=True)
             else:
                 # idle share of the p50 request time, taken unprofiled
-                groups, busy_ms, _ = prof
+                groups, busy_ms, top = prof
                 print(f"profile {label} batch {n}: device busy "
                       f"{busy_ms:.4f} ms per request, idle share "
                       f"{1 - busy_ms / p50:.3f}; ms per request by kernel "
-                      f"group {json.dumps(groups)}", flush=True)
+                      f"group {json.dumps(groups)}; the {OTHER_GROUP!r} "
+                      f"kernels that take most {json.dumps(top)}",
+                      flush=True)
         del pred
     return launches
 
@@ -1307,14 +1363,33 @@ class ReluTape:
 
         return self._patch(fused, rec_relu, rec_sbr, None)
 
+    def save(self, path):
+        """The recorded decisions to ``path``, eight to a byte."""
+        torch.save([(tuple(m.shape), torch.from_numpy(
+            np.packbits(m.numpy().ravel()))) for m in self.masks], path)
+
+    @classmethod
+    def joined(cls, paths):
+        """The tape of one process for the decisions that the ranks of a
+        data-parallel group saved at ``paths`` (in rank order): each
+        call's masks joined along the batch rows, rank 0's first."""
+        tape = cls()
+        saved = [torch.load(p) for p in paths]
+        for calls in zip(*saved):
+            tape.masks.append(torch.cat([
+                torch.from_numpy(np.unpackbits(
+                    bits.numpy(), count=math.prod(shape)).astype(bool)
+                ).reshape(shape) for shape, bits in calls]))
+        return tape
+
     def replay(self, fused):
         queue = iter(self.masks)
 
         def take(natural):
             m = next(queue)
-            self.flips += int((m != natural).sum())
+            self.flips += int((m != natural.cpu()).sum())
             self.n += m.numel()
-            return m
+            return m.to(natural.device)
 
         def rep_relu(x):
             m = take(x > 0)
@@ -1343,7 +1418,11 @@ def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
     gradient, and the BatchNorm running statistics after the step. The CPU
     step takes the card's ReLU decisions (ReluTape); how many of them
     differ from the CPU's own, and the worst gradient without the tape,
-    are printed too."""
+    are printed too. A gradient is held relative to its tensor's largest
+    value, but the ViT's attention key bias, whose gradient is 0 in exact
+    arithmetic (the softmax removes a term added to all scores of a
+    query) and rounding noise on both sides, relative to the model's
+    largest gradient."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
         create_state,
     )
@@ -1390,18 +1469,26 @@ def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
     lc, gc, bc = step("cpu", tape.replay(fused))
     _, g_free, _ = step("cpu")
 
-    def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    largest = max(float(g.abs().max()) for g in gc.values())
+
+    def rel(a, b, key=""):
+        scale = (largest if key.endswith("attn.key.bias")
+                 else b.abs().max().clamp_min(1e-30))
+        return float((a - b).abs().max() / scale)
 
     loss_rel = abs(lg - lc) / abs(lc)
-    grad_rel = {k: rel(gg[k], gc[k]) for k in gc}
+    grad_rel = {k: rel(gg[k], gc[k], k) for k in gc}
     worst_g = max(grad_rel, key=grad_rel.get)
-    free_rel = {k: rel(gg[k], g_free[k]) for k in gc}
+    free_rel = {k: rel(gg[k], g_free[k], k) for k in gc}
     worst_free = max(free_rel, key=free_rel.get)
     stats_err = {k: ((bg[k] - bc[k]).abs()
                      / (CMP_STATS_ATOL + CMP_STATS_RTOL * bc[k].abs())
                      ).max().item() for k in bc}
-    worst_s = max(stats_err, key=stats_err.get)
+    # (no running statistics in a BN-free model, the ViT)
+    worst_s = max(stats_err, key=stats_err.get, default=None)
+    stats_text = ("none" if worst_s is None else
+                  f"worst {worst_s} at {stats_err[worst_s]:.3g} of the "
+                  f"tolerance")
     dropped = ("" if "camera_keep" not in batch else
                f"; camera keep mask {batch['camera_keep'].tolist()}")
     print(f"train {label} one step card vs CPU (batch {n}, f32, TF32 "
@@ -1410,15 +1497,20 @@ def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
           f"{tape.flips} of {tape.n}; with the card's ReLU decisions worst "
           f"gradient {worst_g} {grad_rel[worst_g]:.3g} of its max (limit "
           f"{CMP_GRAD_REL}); without them {worst_free} "
-          f"{free_rel[worst_free]:.3g}; running stats worst {worst_s} at "
-          f"{stats_err[worst_s]:.3g} of the tolerance (rtol "
+          f"{free_rel[worst_free]:.3g}; running stats {stats_text} (rtol "
           f"{CMP_STATS_RTOL} atol {CMP_STATS_ATOL})", flush=True)
-    check(tape.n > 0 and (route != "reduce" or bool(tape.by_ptr)),
+    vit = cfg.model.backbone == "vit"
+    check(tape.n > 0 and (route != "reduce" or bool(tape.by_ptr) or vit),
           f"{label}: the ReLU tape missed the model's ReLUs")
     check(loss_rel <= CMP_LOSS_RTOL, f"{label}: loss differs from the CPU's")
     check(grad_rel[worst_g] <= CMP_GRAD_REL,
           f"{label}: gradient of {worst_g} differs from the CPU's")
-    check(stats_err[worst_s] <= 1.0,
+    # the ViT's GELU and LayerNorm have no ReLU's ties: held without the
+    # tape too
+    check(not vit or free_rel[worst_free] <= CMP_GRAD_REL,
+          f"{label}: without the card's ReLU decisions the gradient of "
+          f"{worst_free} differs from the CPU's")
+    check(worst_s is None or stats_err[worst_s] <= 1.0,
           f"{label}: running statistics {worst_s} differ from the CPU's")
 
 
@@ -1725,7 +1817,7 @@ def _checkpoint_differences(path_a, path_b):
 
 
 def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
-                 base=None):
+                 base=None, attention_math=False):
     """``base`` (default the ``name`` preset) on its route and dtype, with
     deterministic cuDNN (whose backward otherwise sums in another order
     from run to run, and Adam's first steps move every weight by about the
@@ -1736,7 +1828,12 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
     with the straight run's model, optimizer and sampler state bit for
     bit; with camera dropout, every run's keep masks are recorded, and the
     cut and resumed runs must draw the straight run's. Returns the launch
-    counts of the three runs and the resumed run's final checkpoint."""
+    counts of the three runs and the resumed run's final checkpoint.
+    ``attention_math``: scaled_dot_product_attention takes its math
+    backend (matmuls and a softmax) in all three runs, whose backward sums
+    in one order, where the memory-efficient kernel's backward may not
+    (the ViT in f32).
+    """
     import contextlib
 
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
@@ -1768,7 +1865,12 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    contexts = contextlib.ExitStack()
     try:
+        if attention_math:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            contexts.enter_context(sdpa_kernel(SDPBackend.MATH))
         with recording("straight"):
             counts_s, straight, _ = run_training(
                 fused, straight_cfg, f"{name} resume: 16 straight steps",
@@ -1791,6 +1893,7 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
                 smi, state=create_state(cfg, dev),
                 expect_steps=TRAIN_STEPS - STEPS_PER_CALL)
     finally:
+        contexts.close()
         torch.backends.cudnn.deterministic = deterministic
     st = out["state"]
     _, _, final = checkpoint.load_training(out["ckpt_path"])
@@ -1820,7 +1923,9 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
               TRAIN_STEPS and all(same) and dropped > 0,
               f"{name} resume: the camera keep masks differ from the "
               "straight run's, or none dropped")
-    print(f"resume {name} (deterministic cuDNN): checkpoint at step "
+    print(f"resume {name} (deterministic cuDNN"
+          f"{', the math attention backend' if attention_math else ''}): "
+          f"checkpoint at step "
           f"{STEPS_PER_CALL} (optimizer count {STEPS_PER_CALL}, sampler at "
           f"batch {STEPS_PER_CALL}); resumed {len(times)} steps from it to "
           f"step {st.step} (count {st.optimizer.count}, sampler at batch "
@@ -1833,7 +1938,7 @@ def phase_resume(rppt, fused, dev, smi, ckpt_root, dataset, name="pr3",
     return launches, out["ckpt_path"]
 
 
-def phase_evaluate(rppt, fused, dev, ckpt_path):
+def phase_evaluate(rppt, fused, dev, ckpt_path, label="pr3"):
     """api.evaluate_on of the resumed pr3 checkpoint on an in-memory
     dataset of EVAL_SAMPLES, with percentiles and success rates, on the
     card (counts set to 0 just before) against the same checkpoint on the
@@ -1859,7 +1964,7 @@ def phase_evaluate(rppt, fused, dev, ckpt_path):
         if d != "cpu":
             torch.cuda.synchronize()
             launches = _counts(fused)
-        print(f"evaluate pr3 on {d}: {time.perf_counter() - t:.2f} s",
+        print(f"evaluate {label} on {d}: {time.perf_counter() - t:.2f} s",
               flush=True)
     want, got = reports["cpu"], reports[str(dev)]
     check(sorted(got) == sorted(want), f"evaluate keys {sorted(got)}")
@@ -1880,7 +1985,7 @@ def phase_evaluate(rppt, fused, dev, ckpt_path):
     check(launches["normalize_u8"] == chunks
           and launches["scale_bias_relu"] == sites * chunks,
           f"evaluate launches {launches} for {chunks} forwards")
-    print(f"evaluate pr3 step {got['step']} card vs CPU: loss "
+    print(f"evaluate {label} step {got['step']} card vs CPU: loss "
           f"{got['loss']:.6f} vs {want['loss']:.6f}, pos_mae_cm "
           f"{got['pos_mae_cm']:.4f} vs {want['pos_mae_cm']:.4f}, rot_mae_deg "
           f"{got['rot_mae_deg']:.4f} vs {want['rot_mae_deg']:.4f} (rtol "
@@ -2538,6 +2643,47 @@ def _torchvision_resnet18(seed):
     return sd
 
 
+def torchvision_vit(seed, image_size, patch, dim, depth, heads,
+                    in_channels=3, mlp_ratio=4, classes=1000):
+    """A torchvision-layout VisionTransformer state_dict (vit_b_16's key
+    names and shapes at these widths) of seeded numpy arrays, the
+    classifier included (the import drops it). ``heads`` fixes nothing in
+    torch's packed layout; it is how the import splits it."""
+    rng = np.random.default_rng(seed)
+    tokens = (image_size // patch) ** 2 + 1
+    sd = {}
+
+    def put(key, shape, std, mean=0.0):
+        sd[key] = rng.normal(mean, std, shape).astype(np.float32)
+
+    def linear(key, o, i):
+        put(f"{key}.weight", (o, i), 1.0 / math.sqrt(i))
+        put(f"{key}.bias", (o,), 0.02)
+
+    def ln(key):
+        put(f"{key}.weight", (dim,), 0.1, 1.0)
+        put(f"{key}.bias", (dim,), 0.02)
+
+    put("conv_proj.weight", (dim, in_channels, patch, patch),
+        1.0 / math.sqrt(in_channels * patch * patch))
+    put("conv_proj.bias", (dim,), 0.02)
+    put("class_token", (1, 1, dim), 0.02)
+    put("encoder.pos_embedding", (1, tokens, dim), 0.02)
+    for i in range(depth):
+        t = f"encoder.layers.encoder_layer_{i}"
+        ln(f"{t}.ln_1")
+        put(f"{t}.self_attention.in_proj_weight", (3 * dim, dim),
+            1.0 / math.sqrt(dim))
+        put(f"{t}.self_attention.in_proj_bias", (3 * dim,), 0.02)
+        linear(f"{t}.self_attention.out_proj", dim, dim)
+        ln(f"{t}.ln_2")
+        linear(f"{t}.mlp.0", dim * mlp_ratio, dim)
+        linear(f"{t}.mlp.3", dim, dim * mlp_ratio)
+    ln("encoder.ln")
+    linear("heads.head", classes, dim)
+    return sd
+
+
 def _by_hand(model, sd):
     """torchvision ResNet-18 weights copied into every camera encoder of
     ``model``, each key spelled out here."""
@@ -2748,14 +2894,20 @@ def _multihost_rank(cfg, device):
     dataset (the card's host has no h5py), with its launches counted."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
     from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
+    from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
 
     dataset = MemoryDemos(cfg, DATASET_BATCHES * cfg.data.batch_size, seed=4)
     loop.build_dataset = lambda c, split="all": dataset
     _zero_counts(fused)
-    out = loop.fit_rank(cfg, device)
+    tape = ReluTape()
+    with tape.record(fused):
+        out = loop.fit_rank(cfg, device)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    return {**out, "launches": _counts(fused)}
+    tape_path = os.path.join(os.path.dirname(cfg.train.ckpt_dir),
+                             f"relu_tape_{dist.rank()}.pt")
+    tape.save(tape_path)
+    return {**out, "launches": _counts(fused), "tape": tape_path}
 
 
 def _multihost_host(cfg_dict, out_path, devices, backend, visible):
@@ -2800,6 +2952,9 @@ def phase_multihost(rppt, fused, dev, smi, ckpt_root, dataset, hosts=None,
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
         create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.ops import (
+        fused as fused_mod,
     )
     from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
     from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
@@ -2848,8 +3003,16 @@ def phase_multihost(rppt, fused, dev, smi, ckpt_root, dataset, hosts=None,
                for p in range(len(hosts))]
     one_cfg = base.override(**{"train.ckpt_dir": f"{ckpt_root}/mh_one",
                                "dist.num_devices": 1})
-    one = loop.train_on(one_cfg, create_state(one_cfg, dev), dataset,
-                        dataset)
+    # one process takes the ranks' ReLU decisions: at 32 px (the CPU
+    # rehearsal) a stage-4 BatchNorm normalizes 16 values a channel, and
+    # one ReLU input of the first step lies within rounding of 0 (1.1e-5
+    # against the channel's 3.2), which the ranks' all-reduced sums put on
+    # the other side; the steps after it then differ by 1.6e-2 of the
+    # update
+    tape = ReluTape.joined([r["tape"] for h in results for r in h["ranks"]])
+    with tape.replay(fused_mod):
+        one = loop.train_on(one_cfg, create_state(one_cfg, dev), dataset,
+                            dataset)
     want = {k: v.detach().cpu() for k, v in one["model"].state_dict().items()}
     init = {k: v.cpu() for k, v in create_state(one_cfg, dev)
             .model.state_dict().items()}
@@ -2883,8 +3046,9 @@ def phase_multihost(rppt, fused, dev, smi, ckpt_root, dataset, hosts=None,
           f"{files} (train steps logged {logged}); final checkpoint "
           f"{paths}; losses against one process worst rel {loss_rel:.3g} "
           f"(rtol {CMP_LOSS_RTOL}); parameter update differs by "
-          f"{diff / update:.3g} of its L2 norm (limit {DDP_UPDATE_REL}); "
-          f"both hosts' restored models equal the checkpoint bit for bit: "
+          f"{diff / update:.3g} of its L2 norm (limit {DDP_UPDATE_REL}), "
+          f"one process taking the ranks' ReLU decisions (of another sign "
+          f"there: {tape.flips} of {tape.n}); both hosts' restored models equal the checkpoint bit for bit: "
           f"{restored_equal}; launches per rank {launches} ({smi})",
           flush=True)
     check(paths == [checkpoint.step_path(mh_dir, DDP_STEPS)] * len(paths)
@@ -3552,6 +3716,313 @@ def phase_serve(fused, smi, checkpoints):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the ViT backbone, serving artifacts and sweeps
+# ---------------------------------------------------------------------------
+
+
+def phase_vit(rppt, fused, dev, smi, ckpt_root):
+    """pr3 with the ViT at the ModelConfig defaults: serving in f32 and
+    bf16 at batch 1, 8 and 128 against the CPU; one f32 step against the
+    CPU (no ReLU tape needed: GELU and LayerNorm have no ties); 16 f32
+    steps at batch 128 with an eval pass and 8 bf16 steps; a resume from
+    step 8 bit for bit with the straight run (deterministic cuDNN, the
+    math attention backend); evaluate_on against the CPU. Returns ({path: launch
+    counts}, the f32 run's checkpoint directory)."""
+    cfg = rppt.preset("pr3").override(**VIT)
+    m = cfg.model
+    tokens = (m.image_size // m.vit_patch) ** 2 + (m.vit_pool == "cls")
+    dataset = MemoryDemos(cfg, DATASET_BATCHES * BATCH, seed=11)
+    print(f"vit pr3: patch {m.vit_patch}, dim {m.vit_dim}, depth "
+          f"{m.vit_depth}, {m.vit_heads} heads, {m.vit_pool} pooling, "
+          f"{m.image_size}x{m.image_size} ({tokens} tokens), batch {BATCH}, "
+          f"in-memory dataset of {len(dataset)} samples from seed 11",
+          flush=True)
+    paths = {"serving pr3 vit": phase_serving(rppt, fused, smi,
+                                              overrides=VIT,
+                                              label="pr3 vit")}
+    torch.cuda.empty_cache()
+    compare_step_with_cpu(fused, cfg, "pr3 vit", dataset, dev)
+    f32_dir = f"{ckpt_root}/vit_f32"
+    counts, out, _ = run_training(fused, train_cfg(cfg, f32_dir),
+                                  "pr3 vit f32", dataset, dev, smi)
+    paths["train pr3 vit f32"] = counts
+    del out
+    counts, out, _ = run_training(
+        fused, train_cfg(cfg.override(**{"model.dtype": "bfloat16"}),
+                         f"{ckpt_root}/vit_bf16", steps=STEPS_PER_CALL,
+                         eval_every=0, **VIT_BF16_CALLS),
+        "pr3 vit bf16", dataset, dev, smi)
+    paths["train pr3 vit bf16"] = counts
+    del out
+    torch.cuda.empty_cache()
+    paths["resume pr3 vit"], ckpt_path = phase_resume(
+        rppt, fused, dev, smi, ckpt_root, dataset, "vit", cfg,
+        attention_math=True)
+    paths["evaluate pr3 vit"] = phase_evaluate(rppt, fused, dev, ckpt_path,
+                                               "pr3 vit")
+    return paths, f32_dir
+
+
+def phase_vit_b16(rppt, fused, dev, smi, ckpt_root):
+    """pr3 with the ViT at vit_b_16's widths in bf16: serving at batch 8
+    and 128 (batch 8 against the CPU in f32); then weights through
+    train.init_from_torch from a torchvision-named state_dict made from
+    seed 12, the imported encoder held to that state_dict on the card,
+    and 8 steps at batch 128. Returns {path: launch counts}."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
+        create_state,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.torch_import import (
+        import_torch_vit,
+    )
+
+    cfg = rppt.preset("pr3").override(**VIT_B16,
+                                      **{"model.dtype": "bfloat16"})
+    m = cfg.model
+    tokens = (m.image_size // m.vit_patch) ** 2 + 1
+    print(f"vit_b_16 pr3: patch {m.vit_patch}, dim {m.vit_dim}, depth "
+          f"{m.vit_depth}, {m.vit_heads} heads, {m.vit_pool} pooling, "
+          f"{m.image_size}x{m.image_size} ({tokens} tokens), bf16",
+          flush=True)
+    paths = {"serving pr3 vit_b_16": phase_serving(
+        rppt, fused, smi, batches=(8, BATCH), cpu_batches=(8,),
+        overrides=VIT_B16, label="pr3 vit_b_16", dtypes=("bfloat16",))}
+    torch.cuda.empty_cache()
+    sd = torchvision_vit(12, m.image_size, m.vit_patch, m.vit_dim,
+                         m.vit_depth, m.vit_heads)
+    npz = f"{ckpt_root}/vit_b_16.npz"
+    np.savez(npz, **sd)
+    c = train_cfg(cfg.override(**{"train.init_from_torch": npz}),
+                  f"{ckpt_root}/vit_b16", steps=STEPS_PER_CALL, eval_every=0,
+                  **VIT_BF16_CALLS)
+    state = create_state(c, dev)
+    t = time.perf_counter()
+    loop.warm_start(c, state)
+    want = import_torch_vit(sd, m.vit_depth, m.vit_heads)
+    got = state.model.encoder_agentview.state_dict()
+    equal = [k for k, v in want.items()
+             if torch.equal(got[k].cpu(), torch.from_numpy(v))]
+    print(f"vit_b_16 init_from_torch: {len(sd)} torchvision tensors "
+          f"({sum(v.size for v in sd.values())} values) in "
+          f"{time.perf_counter() - t:.2f} s; encoder tensors equal to the "
+          f"import on the card {len(equal)} of {len(want)} (the encoder has "
+          f"{len(got)}, its projection keeping its own)", flush=True)
+    check(len(equal) == len(want) == len(got) - 2,
+          "vit_b_16: the imported encoder differs from the state_dict")
+    dataset = MemoryDemos(c, DATASET_BATCHES * BATCH, seed=12)
+    counts, out, _ = run_training(fused, c, "pr3 vit_b_16 bf16", dataset,
+                                  dev, smi, state=state)
+    paths["train pr3 vit_b_16 bf16"] = counts
+    del out, state
+    torch.cuda.empty_cache()
+    return paths
+
+
+_EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from rgb_proprioceptive_pose_estimator_tpu_torch.models import fusion
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("the artifact built a PoseEstimator")
+
+
+fusion.PoseEstimator.__init__ = refuse
+from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
+from rgb_proprioceptive_pose_estimator_tpu_torch.utils.export import (
+    load_predictor,
+)
+
+path, obs_path, out_path, iters = sys.argv[1], sys.argv[2], sys.argv[3], int(
+    sys.argv[4])
+t = time.perf_counter()
+serve = load_predictor(path)
+load_s = time.perf_counter() - t
+with np.load(obs_path) as z:
+    sizes = sorted({int(k.split("_")[1]) for k in z.files})
+    obs = {n: {"images": {k.split("_", 2)[2]: z[k] for k in z.files
+                          if k.startswith(f"images_{n}_")},
+               "proprio": z[f"proprio_{n}"]} for n in sizes}
+for n in sizes:
+    serve(obs[n])
+torch.cuda.synchronize()
+kernels = ("normalize_u8", "scale_bias_relu")
+for k in kernels:
+    getattr(fused, k).launches = 0
+out = {}
+for n in sizes:
+    out[f"pos_{n}"], out[f"quat_{n}"] = serve(obs[n])
+launches = {k: getattr(fused, k).launches for k in kernels}
+p50 = {}
+for n in sizes:
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        serve(obs[n])
+        times.append((time.perf_counter() - t) * 1e3)
+    p50[n] = float(np.percentile(times, 50))
+np.savez(out_path, **out)
+print(json.dumps({"launches": launches, "p50_ms": p50, "load_s": load_s}))
+"""
+
+
+def phase_export(rppt, fused, smi, ckpt_root, checkpoints):
+    """utils/export.py: each of ``checkpoints`` ({label: checkpoint
+    directory}) exported in f32 and int8 at batch EXPORT_MAX_BATCH (traced
+    on the CPU), then loaded in a fresh process that has the artifact
+    alone (PoseEstimator made unbuildable there) on the card and called at
+    batch 1 and 8: K1's and K2's launches counted there, from the counts
+    set to 0 just before those calls; f32 answers against the Predictor of
+    the checkpoint on the card, int8 against the f32 artifact's; bytes,
+    and p50 latency against the Predictor's. Returns {path: launch
+    counts}."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.models.fusion import (
+        PoseEstimator,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import checkpoint
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.export import (
+        export_predictor,
+    )
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    paths = {}
+    for label, ckpt_dir in checkpoints.items():
+        path, step = checkpoint.resolve(ckpt_dir)
+        cfg = checkpoint.load(path)[0]
+        m = cfg.model
+        with torch.device("meta"):
+            sites = encoder_sites(PoseEstimator(m))
+        sizes = (1, EXPORT_MAX_BATCH)
+        rs = np.random.RandomState(13)
+        obs = {n: {"images": {c: rs.randint(0, 256, (n, m.image_size,
+                                                      m.image_size, 3),
+                                             np.uint8)
+                              for c in m.cameras},
+                   "proprio": rs.randn(n, m.proprio_dim).astype(np.float32)}
+               for n in sizes}
+        obs_path = f"{ckpt_root}/export_obs.npz"
+        np.savez(obs_path, **{f"images_{n}_{c}": v
+                              for n in sizes
+                              for c, v in obs[n]["images"].items()},
+                 **{f"proprio_{n}": obs[n]["proprio"] for n in sizes})
+        pred = rppt.Predictor(cfg, ckpt_dir, max_batch=EXPORT_MAX_BATCH)
+        pred.warmup()
+        want = {n: pred(obs[n]) for n in sizes}
+        pred_p50 = {n: latency_ms(pred, obs[n], EXPORT_ITERS)[0]
+                    for n in sizes}
+        del pred
+        answers, sizes_bytes = {}, {}
+        for quantize in ("none", "int8"):
+            kind = "f32" if quantize == "none" else quantize
+            t = time.perf_counter()
+            art = export_predictor(
+                f"{ckpt_root}/{label.replace(' ', '_')}_{quantize}.rppe",
+                cfg, ckpt_dir=ckpt_dir, max_batch=EXPORT_MAX_BATCH,
+                quantize=quantize)
+            export_s = time.perf_counter() - t
+            sizes_bytes[quantize] = os.path.getsize(art)
+            out_path = f"{ckpt_root}/export_out.npz"
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _EXPORT_CHILD, art, obs_path,
+                 out_path, str(EXPORT_ITERS)],
+                capture_output=True, text=True, env=env, cwd=root,
+                timeout=600)
+            child_s = time.perf_counter() - t
+            check(proc.returncode == 0,
+                  f"export {label} {kind}: the serving process failed: "
+                  f"{proc.stderr[-3000:]}")
+            report = json.loads(proc.stdout.strip().splitlines()[-1])
+            with np.load(out_path) as z:
+                answers[quantize] = {n: (z[f"pos_{n}"], z[f"quat_{n}"])
+                                     for n in sizes}
+            forwards = len(sizes)
+            launches = report["launches"]
+            paths[f"export {label} {kind} (fresh process)"] = {
+                **launches, "scale_bias_relu_backward": 0,
+                "channel_stats": 0}
+            print(f"export {label} {kind}: step {step}, max_batch "
+                  f"{EXPORT_MAX_BATCH}, {sizes_bytes[quantize]} bytes, "
+                  f"traced in {export_s:.2f} s; a fresh process loaded it "
+                  f"in {report['load_s']:.2f} s ({child_s:.2f} s in all), "
+                  f"launches in its calls at batch {list(sizes)}: "
+                  f"{launches}; p50 at batch 1 "
+                  f"{report['p50_ms']['1']:.3f} ms and 8 "
+                  f"{report['p50_ms'][str(EXPORT_MAX_BATCH)]:.3f} ms against "
+                  f"the Predictor's {pred_p50[1]:.3f} and "
+                  f"{pred_p50[EXPORT_MAX_BATCH]:.3f} ms ({smi})", flush=True)
+            check(launches == {"normalize_u8": forwards,
+                               "scale_bias_relu": sites * forwards},
+                  f"export {label} {kind}: launches {launches}, expected "
+                  f"{forwards} normalize_u8 and {sites * forwards} "
+                  "scale_bias_relu")
+        for n in sizes:
+            (p32, q32), (wp, wq) = answers["none"][n], want[n]
+            (p8, q8) = answers["int8"][n]
+            err32 = max(float(np.abs(p32 - wp).max()),
+                        float(np.abs(q32 - wq).max()))
+            err8 = float(np.abs(p8 - p32).max())
+            dot = float(np.abs(np.abs(np.sum(q8 * q32, -1)) - 1.0).max())
+            print(f"export {label} batch {n}: f32 artifact against the "
+                  f"Predictor max_abs_err {err32:.3g} (rtol {EXPORT_RTOL} "
+                  f"atol {EXPORT_ATOL}); int8 positions against f32 "
+                  f"{err8:.3g} (atol {INT8_POS_ATOL}), 1 - |<q8, q32>| "
+                  f"worst {dot:.3g} (atol {INT8_QUAT_ATOL})", flush=True)
+            check(np.allclose(p32, wp, rtol=EXPORT_RTOL, atol=EXPORT_ATOL)
+                  and np.allclose(q32, wq, rtol=EXPORT_RTOL,
+                                  atol=EXPORT_ATOL),
+                  f"export {label} batch {n}: the f32 artifact differs from "
+                  "the Predictor")
+            check(err8 <= INT8_POS_ATOL and dot <= INT8_QUAT_ATOL,
+                  f"export {label} batch {n}: int8 too far from f32")
+        print(f"export {label}: artifact bytes f32 {sizes_bytes['none']} "
+              f"int8 {sizes_bytes['int8']} (ratio "
+              f"{sizes_bytes['int8'] / sizes_bytes['none']:.4f})",
+              flush=True)
+    return paths
+
+
+def phase_sweep(rppt, dev, smi, ckpt_root):
+    """utils/sweep.py on the card: pr1 on synthetic data, a grid of two
+    learning rates of a few steps each, then the same call again, which
+    trains nothing (each run's row is in sweep.jsonl)."""
+    cfg = rppt.preset("pr1").override(**{
+        "train.steps": 6, "train.eval_every": 6, "train.eval_steps": 2,
+        "train.ckpt_every": 6, "train.log_every": 3,
+        "data.synthetic_size": 512, "data.batch_size": 32,
+        "data.val_fraction": 0.25, "data.num_workers": 1,
+        "dist.num_devices": 1})
+    out = f"{ckpt_root}/sweep"
+    grid = "train.lr=1e-3|1e-4"
+    t = time.perf_counter()
+    first = rppt.run_sweep(cfg, grid, out, device=dev)
+    t_first = time.perf_counter() - t
+    t = time.perf_counter()
+    again = rppt.run_sweep(cfg, grid, out, device=dev)
+    t_again = time.perf_counter() - t
+    with open(first["results"]) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"sweep pr1 on {dev}: grid {grid!r}, {cfg.train.steps} steps a "
+          f"run: {first['completed']} runs in {t_first:.2f} s (cached "
+          f"{first['cached']}), again in {t_again:.2f} s (cached "
+          f"{again['cached']}); best {json.dumps(first['best'])}; rows "
+          f"{[(r['run'], r['overrides'], r['eval_pos_mae_cm']) for r in rows]}"
+          f" ({smi})", flush=True)
+    check(first["completed"] == 2 and first["cached"] == 0
+          and again["completed"] == 2 and again["cached"] == 2
+          and again["best"] == first["best"] and len(rows) == 2
+          and all(math.isfinite(r["eval_pos_mae_cm"]) for r in rows),
+          "sweep: runs not recorded, or the second call trained again")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3663,6 +4134,16 @@ def main() -> int:
             "pr3": ckpt_path,
             "pr5": checkpoint.resolve(
                 f"{ckpt_root}/cache_reduce_1_0")[0]}))
+        torch.cuda.empty_cache()
+        # the ViT backbone at its default and vit_b_16 widths, serving
+        # artifacts of pr3's and the ViT's f32 checkpoints in a fresh
+        # process, a sweep
+        trained, vit_dir = phase_vit(rppt, fused, dev, smi, ckpt_root)
+        paths.update(trained)
+        paths.update(phase_vit_b16(rppt, fused, dev, smi, ckpt_root))
+        paths.update(phase_export(rppt, fused, smi, ckpt_root, {
+            "pr3": f"{ckpt_root}/pr3_reduce_f32", "pr3 vit": vit_dir}))
+        phase_sweep(rppt, dev, smi, ckpt_root)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

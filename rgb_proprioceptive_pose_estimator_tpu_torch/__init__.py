@@ -13,8 +13,11 @@ every Pallas kernel replaced by a hand-written CUDA kernel for Hopper
     pred = rppt.Predictor(cfg, out["ckpt_dir"])         # latest checkpoint
     pos, quat = pred({"images": {"agentview": img}, "proprio": state})
 
-The CLI: ``python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli``.
+The CLI: ``python -m rgb_proprioceptive_pose_estimator_tpu_torch.cli``;
+grid sweeps: ``run_sweep``; serving artifacts: ``utils/export.py``.
 """
+
+import os as _os
 
 from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
     PRESETS,
@@ -25,12 +28,21 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.config import (
     TrainConfig,
     preset,
 )
-from rgb_proprioceptive_pose_estimator_tpu_torch.api import (
-    Predictor,
-    evaluate,
-    predict,
-    train,
-)
+
+if not _os.environ.get("_RPPE_RENDER_WORKER"):
+    # the isolated render child (data/playback._render_in_subprocess)
+    # imports no torch: it neither needs it nor may co-host its libraries
+    # with software-mesa's; what it runs (playback, hdf5_store, augment)
+    # is torch-free
+    from rgb_proprioceptive_pose_estimator_tpu_torch.api import (
+        Predictor,
+        evaluate,
+        predict,
+        train,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils.sweep import (
+        run_sweep,
+    )
 
 __all__ = [
     "Config",
@@ -44,4 +56,5 @@ __all__ = [
     "evaluate",
     "predict",
     "train",
+    "run_sweep",
 ]

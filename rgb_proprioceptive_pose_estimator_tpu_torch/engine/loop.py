@@ -264,8 +264,8 @@ def warm_start(cfg: Config, state: TrainState) -> None:
     buffers, BatchNorm and proprio statistics included, from the latest
     checkpoint of that directory (or ``.../best``); the optimizer, step
     and data order stay fresh. train.init_from_torch: torchvision ResNet
-    weights into every camera encoder. Either way the EMA restarts at the
-    imported weights."""
+    or VisionTransformer weights into every camera encoder. Either way
+    the EMA restarts at the imported weights."""
     tcfg, model = cfg.train, state.model
     if tcfg.init_from:
         path, _ = checkpoint.resolve(tcfg.init_from)
@@ -292,14 +292,22 @@ def warm_start(cfg: Config, state: TrainState) -> None:
         )
 
         arch = cfg.model.backbone
-        if arch not in ("resnet18", "resnet34", "resnet50"):
+        if arch not in ("resnet18", "resnet34", "resnet50", "vit"):
             raise ValueError(
                 f"train.init_from_torch: no torchvision import mapping for "
                 f"model.backbone={arch!r} (supported: resnet18/resnet34/"
-                "resnet50)")
+                "resnet50/vit)")
+        if arch == "vit" and cfg.model.vit_pool != "cls":
+            raise ValueError(
+                "train.init_from_torch with a ViT backbone requires "
+                "model.vit_pool='cls' (torchvision VisionTransformer reads "
+                "the class token; mean pooling would misuse the imported "
+                "pos_embed CLS slot)")
         sd = load_state_dict_file(tcfg.init_from_torch)
         for cam in cfg.model.cameras:
-            load_pretrained_backbone(model, cam, sd, arch)
+            load_pretrained_backbone(model, cam, sd, arch,
+                                     depth=cfg.model.vit_depth,
+                                     heads=cfg.model.vit_heads)
     if state.ema is not None:
         state.ema = ema_of(model)
 

@@ -30,6 +30,11 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.models.lstm import (
     LSTM,
     RECURRENT_KERNELS,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.vit import (
+    HeadDense,
+    LayerNorm,
+    ViT,
+)
 
 # flax's lecun_normal draws from a normal truncated at 2 std and rescales
 # by this constant so that the variance stays 1/fan_in
@@ -86,12 +91,21 @@ def serving(model: nn.Module, ema: Optional[Dict[str, torch.Tensor]],
                 tensors[k].copy_(v)
 
 
+def _lecun_normal(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator``:
     He-normal (fan out) convolutions, LeCun truncated-normal dense kernels
-    (the LSTM's input kernels too), orthogonal LSTM recurrent kernels, zero
-    biases, BatchNorm scale 1 and shift 0, and identity running and
-    proprio statistics. (The draws differ from JAX's: tests hand both
+    (the LSTM's input kernels, the ViT's patch embedding and attention
+    kernels too), orthogonal LSTM recurrent kernels, zero biases,
+    BatchNorm and LayerNorm scale 1 and shift 0, identity running and
+    proprio statistics, and the ViT's position embedding normal with std
+    0.02 and class token 0. (The draws differ from JAX's: tests hand both
     packages the same weights instead.)"""
     with torch.no_grad():
         for mod in model.modules():
@@ -100,22 +114,34 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                         nonlinearity="relu",
                                         generator=generator)
             elif isinstance(mod, nn.Linear):
-                std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
+                _lecun_normal(mod.weight, mod.in_features, generator)
                 if mod.bias is not None:
                     nn.init.zeros_(mod.bias)
-            elif isinstance(mod, BatchNormAct):
+            elif isinstance(mod, HeadDense):
+                w = mod.weight
+                _lecun_normal(w, w.shape[0] * (w.shape[1] if mod.out else 1),
+                              generator)
+                nn.init.zeros_(mod.bias)
+            elif isinstance(mod, (BatchNormAct, LayerNorm)):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
+            if isinstance(mod, BatchNormAct):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
-        # after the pass above, which visits the LSTM's dense layers too
+        # after the pass above, which visits the LSTM's dense layers and
+        # the ViT's patch convolution too
         for mod in model.modules():
             if isinstance(mod, LSTM):
                 for name in RECURRENT_KERNELS:
                     nn.init.orthogonal_(getattr(mod, name).weight,
                                         generator=generator)
+            elif isinstance(mod, ViT):
+                w = mod.patch_embed.weight
+                _lecun_normal(w, w[0].numel(), generator)
+                nn.init.zeros_(mod.patch_embed.bias)
+                nn.init.normal_(mod.pos_embed, std=0.02, generator=generator)
+                if mod.pool == "cls":
+                    nn.init.zeros_(mod.cls_token)
 
 
 def create_state(cfg: Config, device: torch.device,

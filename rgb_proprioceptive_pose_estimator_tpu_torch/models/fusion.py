@@ -28,8 +28,8 @@ that ``rot6d_to_quat`` turns into one. In training, model.camera_dropout
 zeroes cameras per sample (no rescale), drawn from the ``generator`` the
 train step passes; model.proprio_dropout drops proprio features as
 flax's ``nn.Dropout`` does (kept ones scaled by 1/(1-p)), from the same
-generator. Both are the identity in eval mode. The ViT backbone comes in
-a later slice (ROADMAP.md queue A, item 10) and raises here.
+generator. Both are the identity in eval mode. The image encoder is
+model.backbone's: CNNSmall, a ResNet or the ViT.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.models.resnet import (
     ResNet34,
     ResNet50,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.models.vit import ViT
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.image_device import (
     normalize_images,
 )
@@ -76,14 +77,6 @@ def _stack_temporal(img: torch.Tensor) -> torch.Tensor:
 def uses_lstm(cfg: ModelConfig) -> bool:
     """T > 1 frames go through the encoder one by one and then an LSTM."""
     return cfg.temporal_frames > 1 and cfg.temporal_mode == "lstm"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model options this slice lacks."""
-    if cfg.backbone == "vit":
-        raise NotImplementedError(
-            "model.backbone='vit': the ViT backbone comes in a later slice "
-            "(ROADMAP.md queue A, item 10)")
 
 
 def draw_camera_keep(generator: torch.Generator, p: float, shape,
@@ -136,6 +129,12 @@ def _encoder(cfg: ModelConfig, dtype: torch.dtype) -> nn.Module:
     if cfg.backbone == "cnn_small":
         return CNNSmall(features=cfg.image_features, in_channels=in_channels,
                         compute_dtype=dtype, bn_stats=cfg.bn_stats)
+    if cfg.backbone == "vit":
+        return ViT(features=cfg.image_features, image_size=cfg.image_size,
+                   in_channels=in_channels, patch=cfg.vit_patch,
+                   dim=cfg.vit_dim, depth=cfg.vit_depth, heads=cfg.vit_heads,
+                   mlp_ratio=cfg.vit_mlp_ratio, pool=cfg.vit_pool,
+                   compute_dtype=dtype, remat=cfg.remat)
     return _RESNETS[cfg.backbone](
         features=cfg.image_features, in_channels=in_channels,
         compute_dtype=dtype, bn_stats=cfg.bn_stats, remat=cfg.remat)
@@ -150,7 +149,6 @@ class PoseEstimator(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.compute_dtype = dtype

@@ -4,9 +4,9 @@ their plain PyTorch versions.
 - ``normalize_u8``: uint8 image -> f32/bf16 ``x * (1/(255 std)) - mean/std``
   in one pass (the JAX package's ``pallas_normalize_u8``).
 - ``scale_bias_relu``: ``relu(x * scale + bias)`` per channel, the
-  BatchNorm + ReLU epilogue (the JAX package's ``scale_bias_relu``), an
-  autograd Function whose backward is the kernel
-  ``scale_bias_relu_backward`` (the JAX package's ``_sbr_bwd``).
+  BatchNorm + ReLU epilogue (the JAX package's ``scale_bias_relu``),
+  whose gradient is the kernel ``scale_bias_relu_backward`` (the JAX
+  package's ``_sbr_bwd``).
 - ``channel_stats``: per-channel f32 (sum x, sum x^2) in one read of x,
   the BatchNorm training statistics (the JAX package's ``channel_stats``).
 
@@ -20,6 +20,14 @@ pointer not 16-byte aligned) is also counted in
 ``<wrapper>.scalar_launches``. normalize_u8 and scale_bias_relu equal
 their plain versions exactly (NaN where they have NaN); the two
 reductions are deterministic: the same input gives bitwise-equal sums.
+
+normalize_u8 and scale_bias_relu are the torch ops ``rppe::normalize_u8``
+and ``rppe::scale_bias_relu`` (``torch.library`` custom ops with a fake
+kernel for tracing, the second with its gradient registered), which the
+wrappers call after their checks. ``torch.export`` keeps them as nodes of
+the graph, so an exported model launches the same kernels; the choice
+between kernel and plain version is made where the op runs, by the device
+of its input.
 """
 
 from __future__ import annotations
@@ -359,6 +367,19 @@ def _normalize_plan(n: int, nstats: int, data_ptrs: Sequence[int],
                          threads - threads % nstats)
 
 
+@torch.library.custom_op("rppe::normalize_u8", mutates_args=())
+def _normalize_u8_op(images: torch.Tensor, mean: List[float],
+                     std: List[float], dtype: torch.dtype) -> torch.Tensor:
+    if images.device.type == "cpu":
+        return normalize_u8_reference(images, mean, std, dtype)
+    return _normalize_u8_launch(images, mean, std, dtype)
+
+
+@_normalize_u8_op.register_fake
+def _(images, mean, std, dtype):
+    return images.new_empty(images.shape, dtype=dtype)
+
+
 def normalize_u8(images: torch.Tensor, mean: Sequence[float],
                  std: Sequence[float],
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -381,9 +402,15 @@ def normalize_u8(images: torch.Tensor, mean: Sequence[float],
                          f"multiple of the stats length {nstats}")
     if not images.is_contiguous():
         raise ValueError("normalize_u8 expects contiguous images")
-    if images.device.type == "cpu":
-        return normalize_u8_reference(images, mean, std, dtype)
+    return torch.ops.rppe.normalize_u8(images, [float(m) for m in mean],
+                                       [float(s) for s in std], dtype)
+
+
+def _normalize_u8_launch(images: torch.Tensor, mean: Sequence[float],
+                         std: Sequence[float],
+                         dtype: torch.dtype) -> torch.Tensor:
     _require_cuda(images, "normalize_u8")
+    nstats = len(mean)
     out = torch.empty(images.shape, dtype=dtype, device=images.device)
     if out.numel() == 0:
         return out
@@ -517,31 +544,41 @@ scale_bias_relu_backward.launches = 0
 scale_bias_relu_backward.scalar_launches = 0
 
 
-class _ScaleBiasReLU(torch.autograd.Function):
-    """scale_bias_relu with its backward kernel (jax.custom_vjp in the JAX
-    package). Its backward is not differentiable again."""
+@torch.library.custom_op("rppe::scale_bias_relu", mutates_args=())
+def _sbr_op(x: torch.Tensor, scale: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    return _sbr_forward(x, scale, bias)
 
-    @staticmethod
-    def forward(ctx, x, scale, bias):
-        ctx.save_for_backward(x, scale, bias)
-        return _sbr_forward(x, scale, bias)
 
-    @staticmethod
-    def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "scale_bias_relu has no second derivative (its backward is "
-                "a kernel); do not differentiate through its gradient")
-        x, scale, bias = ctx.saved_tensors
-        if not _same_layout(x, g):
-            # the layout of a gradient is not the caller's to choose (max
-            # pooling, residual adds and convolutions may hand back
-            # NCHW-contiguous memory): copy, and count the copy
-            g = g.contiguous(memory_format=(torch.channels_last
-                                            if x.ndim == 4
-                                            else torch.contiguous_format))
-            scale_bias_relu.grad_layout_copies += 1
-        return scale_bias_relu_backward(x, g, scale, bias)
+@_sbr_op.register_fake
+def _(x, scale, bias):
+    return torch.empty_like(x)
+
+
+def _sbr_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _sbr_backward(ctx, g):
+    """The backward kernel (jax.custom_vjp in the JAX package); it is not
+    differentiable again."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "scale_bias_relu has no second derivative (its backward is "
+            "a kernel); do not differentiate through its gradient")
+    x, scale, bias = ctx.saved_tensors
+    if not _same_layout(x, g):
+        # the layout of a gradient is not the caller's to choose (max
+        # pooling, residual adds and convolutions may hand back
+        # NCHW-contiguous memory): copy, and count the copy
+        g = g.contiguous(memory_format=(torch.channels_last
+                                        if x.ndim == 4
+                                        else torch.contiguous_format))
+        scale_bias_relu.grad_layout_copies += 1
+    return scale_bias_relu_backward(x, g, scale, bias)
+
+
+_sbr_op.register_autograd(_sbr_backward, setup_context=_sbr_setup_context)
 
 
 def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
@@ -556,7 +593,7 @@ def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
     x's, and counted in ``scale_bias_relu.grad_layout_copies``."""
     _check_channels_innermost(x, "scale_bias_relu")
     _check_channel_vectors(x, "scale_bias_relu", scale, bias)
-    return _ScaleBiasReLU.apply(x, scale, bias)
+    return torch.ops.rppe.scale_bias_relu(x, scale, bias)
 
 
 scale_bias_relu.launches = 0

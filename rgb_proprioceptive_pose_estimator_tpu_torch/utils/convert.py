@@ -16,6 +16,13 @@ gate layout, one dense layer per gate: ``lstm_<camera>/i{i,f,g,o}/kernel``
 (in, H), no bias, and ``lstm_<camera>/h{i,f,g,o}/kernel`` (H, H) with
 ``bias``, which the dense rule above carries to the same names.
 
+The ViT (model.backbone="vit") keeps flax's attention layout, so its
+leaves carry over as they are: ``attn/{query,key,value}/kernel`` (dim,
+heads, dim/heads) with ``bias`` (heads, dim/heads), ``attn/out/kernel``
+(heads, dim/heads, dim), ``cls_token`` (1, 1, dim) and ``pos_embed`` (1,
+tokens, dim); its LayerNorm ``scale`` and ``bias`` take the BatchNorm
+affine's rule, its patch embedding the conv rule.
+
 The conversion is strict: every JAX leaf is consumed and every port key is
 filled, with the port's shape, or it raises.
 """
@@ -70,14 +77,16 @@ def port_arrays(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     for path, leaf in _leaves(variables.get("params", {})):
         *mods, name = path
         a = np.asarray(leaf, dtype=np.float32)
-        if name == "kernel" and a.ndim == 4:          # conv HWIO -> OIHW
-            key, a = "weight", a.transpose(3, 2, 0, 1)
-        elif name == "kernel" and a.ndim == 2:        # dense (in, out)
-            key, a = "weight", a.T
-        elif name == "scale" and a.ndim == 1:         # BN gamma
+        if name == "kernel" and a.ndim in (2, 3, 4):
+            # conv HWIO -> OIHW, dense (in, out) -> (out, in), attention
+            # per head as it is
+            key, a = "weight", port_kernel(a)
+        elif name == "scale" and a.ndim == 1:         # BN / LN gamma
             key = "weight"
-        elif name == "bias" and a.ndim == 1:
+        elif name == "bias" and a.ndim in (1, 2):
             key = "bias"
+        elif name in ("cls_token", "pos_embed") and a.ndim == 3:
+            key = name
         else:
             raise ValueError(f"params/{'/'.join(path)} {a.shape}: no "
                              "counterpart in the port")
@@ -111,7 +120,15 @@ def state_dict_from_jax(variables: Mapping[str, Any],
     return {k: torch.tensor(np.ascontiguousarray(out[k])) for k in shapes}
 
 
-def _jax_leaf(key: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+def port_kernel(a: np.ndarray) -> np.ndarray:
+    """A flax ``kernel`` (conv HWIO, dense (in, out), attention per head)
+    in the port's layout, of any dtype: the inverse of jax_leaf's."""
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    return a.T if a.ndim == 2 else a
+
+
+def jax_leaf(key: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
     """Port key and value -> (path in the JAX tree, value in JAX layout)."""
     *mods, name = key.split(".")
     if name in _STATS_TO_JAX:
@@ -120,6 +137,8 @@ def _jax_leaf(key: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]
         return ("params", *mods, "kernel"), value.transpose(2, 3, 1, 0)
     if name == "weight" and value.ndim == 2:
         return ("params", *mods, "kernel"), value.T
+    if name == "weight" and value.ndim == 3:
+        return ("params", *mods, "kernel"), value
     if name == "weight":
         return ("params", *mods, "scale"), value
     return ("params", *mods, name), value
@@ -129,9 +148,9 @@ def random_jax_variables(model_cfg: ModelConfig, seed: int = 0
                          ) -> Dict[str, Any]:
     """Random variables in the JAX package's layout for model_cfg, made
     from ``seed`` with numpy: He-normal (fan out) convs, LeCun-normal
-    dense kernels, and biases, BatchNorm affines and running statistics
-    and proprio statistics far enough from identity that every folded
-    scale and shift matters."""
+    dense and attention kernels, and biases, ViT tokens, BatchNorm
+    affines and running statistics and proprio statistics far enough
+    from identity that every folded scale and shift matters."""
     return random_variables_for(port_shapes(model_cfg), seed)
 
 
@@ -140,7 +159,7 @@ def random_variables_for(shapes: Mapping[str, Tuple[int, ...]],
     """random_jax_variables for the port state_dict keys and shapes
     ``shapes`` (a whole model's or one module's)."""
     rng = np.random.default_rng(seed)
-    tree: Dict[str, Any] = {}
+    arrays: Dict[str, np.ndarray] = {}
     for key, shape in shapes.items():
         name = key.rsplit(".", 1)[-1]
         if name == "weight" and len(shape) == 4:
@@ -148,9 +167,13 @@ def random_variables_for(shapes: Mapping[str, Tuple[int, ...]],
             v = rng.normal(0.0, np.sqrt(2.0 / fan_out), shape)
         elif name == "weight" and len(shape) == 2:
             v = rng.normal(0.0, np.sqrt(1.0 / shape[1]), shape)
-        elif name == "weight":                       # BN gamma
+        elif name == "weight" and len(shape) == 3:   # attention, per head
+            fan_in = shape[0] * (shape[1] if key.endswith(".out.weight")
+                                 else 1)
+            v = rng.normal(0.0, np.sqrt(1.0 / fan_in), shape)
+        elif name == "weight":                       # BN / LN gamma
             v = rng.uniform(0.5, 1.5, shape)
-        elif name in ("bias", "running_mean"):
+        elif name in ("bias", "running_mean", "cls_token", "pos_embed"):
             v = rng.normal(0.0, 0.1, shape)
         elif name == "running_var":
             v = rng.uniform(0.5, 1.5, shape)
@@ -160,7 +183,19 @@ def random_variables_for(shapes: Mapping[str, Tuple[int, ...]],
             v = rng.uniform(0.5, 2.0, shape)
         else:
             raise ValueError(f"no random init for {key}")
-        path, v = _jax_leaf(key, v.astype(np.float32))
+        arrays[key] = v.astype(np.float32)
+    return jax_variables(arrays)
+
+
+def jax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """A port state_dict (tensors or arrays; a whole model's or one
+    module's) -> the JAX package's variable tree of f32 numpy arrays, the
+    inverse of ``port_arrays``."""
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        if hasattr(value, "detach"):
+            value = value.detach().cpu().numpy()
+        path, v = jax_leaf(key, np.asarray(value, dtype=np.float32))
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -1,8 +1,8 @@
-"""torchvision ResNet weights into the port's camera encoders
-(``train.init_from_torch``; counterpart of the ResNet part of the JAX
-package's ``utils/torch_import.py``).
+"""torchvision ResNet and VisionTransformer weights into the port's camera
+encoders (``train.init_from_torch``; counterpart of the JAX package's
+``utils/torch_import.py``).
 
-Give it a torchvision resnet18/34/50 ``state_dict()`` (torch tensors or
+Give it a torchvision resnet18/34/50 or vit_b_16-style ``state_dict()`` (torch tensors or
 numpy arrays, from an ``.npz`` archive of its keys or a torch-pickled
 file) and it fills one ``encoder_<camera>`` of a PoseEstimator's
 state_dict. The port's encoders already keep torch's layouts, so the
@@ -16,15 +16,33 @@ mapping renames and does not transpose:
     fc.*                          -> dropped (the pose projection replaces
                                      the classifier, as in the reference)
 
-(``bn.*`` is weight, bias, running_mean and running_var.) The encoder's
-``proj`` keeps its own initialization. The ViT mapping comes with the ViT
-backbone (ROADMAP.md queue A, item 10).
+(``bn.*`` is weight, bias, running_mean and running_var.) The ViT's
+(``model.vit_pool="cls"``) splits torch's packed attention projections
+into flax's per-head kernels, which the port's ViT keeps:
+
+    conv_proj.*                          -> patch_embed.*
+    class_token                          -> cls_token
+    encoder.pos_embedding                -> pos_embed (class token first)
+    encoder.layers.encoder_layer_{i}.
+      ln_1.*, ln_2.*                     -> block{i}.ln1.*, .ln2.*
+      self_attention.in_proj_weight (3E, E) rows [q; k; v]
+                                         -> block{i}.attn.{query,key,value}
+                                            .weight (E, H, E/H): each (E, E)
+                                            slice transposed, then split
+      self_attention.in_proj_bias        -> .bias (H, E/H)
+      self_attention.out_proj.weight     -> block{i}.attn.out.weight
+                                            (H, E/H, E), transposed
+      mlp.0.*, mlp.3.*                   -> block{i}.mlp1.*, .mlp2.*
+    encoder.ln.*                         -> ln_out.*
+    heads.*                              -> dropped
+
+The encoder's ``proj`` keeps its own initialization.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -92,19 +110,77 @@ def import_torch_resnet(state_dict: Mapping[str, Any], arch: str
     return out
 
 
+def import_torch_vit(state_dict: Mapping[str, Any], depth: int,
+                     heads: int) -> Dict[str, np.ndarray]:
+    """torchvision VisionTransformer state_dict -> {encoder state_dict key:
+    f32 array} for the port's ViT with pool="cls" of ``depth`` blocks and
+    ``heads`` heads (the backbone only)."""
+    dim = _np(state_dict["class_token"]).shape[-1]
+    hd = dim // heads
+
+    def f32(key: str) -> np.ndarray:
+        return _np(state_dict[key]).astype(np.float32)
+
+    out = {"patch_embed.weight": f32("conv_proj.weight"),
+           "patch_embed.bias": f32("conv_proj.bias"),
+           "cls_token": f32("class_token"),
+           "pos_embed": f32("encoder.pos_embedding"),
+           "ln_out.weight": f32("encoder.ln.weight"),
+           "ln_out.bias": f32("encoder.ln.bias")}
+    for i in range(depth):
+        t, port = f"encoder.layers.encoder_layer_{i}", f"block{i}"
+        w = f32(f"{t}.self_attention.in_proj_weight")
+        b = f32(f"{t}.self_attention.in_proj_bias")
+        for j, name in enumerate(("query", "key", "value")):
+            rows = slice(j * dim, (j + 1) * dim)
+            out[f"{port}.attn.{name}.weight"] = np.ascontiguousarray(
+                w[rows].T.reshape(dim, heads, hd))
+            out[f"{port}.attn.{name}.bias"] = b[rows].reshape(heads, hd)
+        out[f"{port}.attn.out.weight"] = np.ascontiguousarray(
+            f32(f"{t}.self_attention.out_proj.weight").T.reshape(
+                heads, hd, dim))
+        out[f"{port}.attn.out.bias"] = f32(
+            f"{t}.self_attention.out_proj.bias")
+        for tn, pn in (("ln_1", "ln1"), ("ln_2", "ln2"), ("mlp.0", "mlp1"),
+                       ("mlp.3", "mlp2")):
+            for leaf in ("weight", "bias"):
+                out[f"{port}.{pn}.{leaf}"] = f32(f"{t}.{tn}.{leaf}")
+    return out
+
+
 def load_pretrained_backbone(model: torch.nn.Module, camera: str,
-                             state_dict: Mapping[str, Any], arch: str
-                             ) -> None:
-    """Copy torchvision ResNet weights into ``model``'s
-    ``encoder_<camera>`` in place, running statistics included; raises
-    KeyError for a key the encoder lacks and ValueError for a shape that
-    differs (another architecture, or T frames stacked on channels)."""
+                             state_dict: Mapping[str, Any], arch: str,
+                             depth: Optional[int] = None,
+                             heads: Optional[int] = None) -> None:
+    """Copy torchvision weights into ``model``'s ``encoder_<camera>`` in
+    place, running statistics included. ``arch``: resnet18/34/50, or
+    "vit" (the torchvision VisionTransformer layout; ``depth`` and
+    ``heads`` default to the encoder's, and an import of fewer blocks than
+    the encoder has raises ValueError). Raises KeyError for a key the
+    encoder lacks and ValueError for a shape that differs (another
+    architecture, an image size with another token count, or T frames
+    stacked on channels)."""
     enc = f"encoder_{camera}"
     if not hasattr(model, enc):
         raise KeyError(f"no encoder {enc!r}; have "
                        f"{sorted(n for n, _ in model.named_children())}")
-    target = getattr(model, enc).state_dict()
-    weights = import_torch_resnet(state_dict, arch)
+    encoder = getattr(model, enc)
+    target = encoder.state_dict()
+    if arch == "vit":
+        blocks = getattr(encoder, "blocks", [])
+        depth = len(blocks) if depth is None else depth
+        heads = (getattr(encoder, blocks[0]).attn.query.heads
+                 if heads is None and blocks else heads)
+        weights = import_torch_vit(state_dict, depth, heads)
+        missing = sorted(b for b in blocks
+                         if f"{b}.attn.query.weight" not in weights)
+        if missing:
+            raise ValueError(
+                f"imported ViT covers {depth} blocks but {enc} has "
+                f"{len(blocks)}; blocks left uninitialized: {missing} "
+                "(pass the encoder's actual depth)")
+    else:
+        weights = import_torch_resnet(state_dict, arch)
     for k, v in weights.items():
         if k not in target:
             raise KeyError(f"backbone key {k!r} missing in {enc} "

@@ -209,14 +209,48 @@ def test_cli_train_eval_predict_on_the_cpu(scored, tmp_path, capsys):
     assert set(lines[-1]) == {"pos_mae_cm", "rot_mae_deg"}
 
 
-@pytest.mark.parametrize("command", cli.LATER)
-def test_cli_commands_not_in_the_port_exit_naming_their_item(command,
-                                                             capsys):
-    rc, out = _run(cli.main, [command, "--out", "x"], capsys)
-    assert rc != 0 and "item 11" in out.err
+def _outcome(main, argv, capsys):
+    """What a CLI call ends with: (exit code or the exception's type,
+    its message with the package's name taken out)."""
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    except Exception as e:  # noqa: BLE001 (the outcome is compared)
+        rc = (type(e).__name__, str(e))
+    capsys.readouterr()
+    return (rc if not isinstance(rc, str) else
+            rc.replace("rgb_proprioceptive_pose_estimator_tpu_torch",
+                       "rgb_proprioceptive_pose_estimator_tpu"))
 
 
-def test_cli_predict_plot_is_refused(scored):
-    with pytest.raises(SystemExit, match="item 11"):
-        cli.main(["predict", "--preset", "pr2", "--device", "cpu", "--set",
-                  f"data.path={scored['path']}", "--plot", "x.png"])
+@pytest.mark.parametrize("command", ("export", "render", "repack", "sweep",
+                                     "curves", "inspect"))
+def test_cli_commands_not_in_the_port_exit_naming_their_item(
+        command, capsys, tmp_path):
+    """The six subcommands that the port's CLI once refused run in it: called without their inputs (no checkpoint, --src, --grid,
+    metrics file or hdf5 data), each ends as the JAX package's CLI does,
+    with the same message."""
+    argv = [command, "--out", str(tmp_path / "x"), "--set",
+            f"train.ckpt_dir={tmp_path / 'empty'}"]
+    assert command in cli.COMMANDS
+    port = _outcome(cli.main, argv, capsys)
+    ref = _outcome(jax_cli.main, argv, capsys)
+    assert port == ref and port != 0, (port, ref)
+
+
+def test_cli_predict_plot_is_refused(scored, tmp_path, capsys):
+    """predict --plot (once refused) writes the reference's
+    trajectory figure for the demo and reports its path; with --t it is
+    refused as in the reference."""
+    common = ["predict", "--preset", "pr2", "--device", "cpu", "--set",
+              f"data.path={scored['path']}", "--set",
+              "model.use_proprio=true", "--ckpt-dir", scored["pdir"]]
+    png = str(tmp_path / "traj.png")
+    rc, out = _run(cli.main, [*common, "--plot", png], capsys)
+    summary = json.loads(out.out.splitlines()[-1])
+    assert rc == 0 and summary["plot"] == png
+    with open(png, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    with pytest.raises(SystemExit, match="drop --t"):
+        cli.main([*common, "--plot", png, "--t", "0"])

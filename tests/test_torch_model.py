@@ -242,26 +242,33 @@ def test_state_dict_from_jax_is_strict(pr3, fault):
         state_dict_from_jax(v, pr3["cfg"].model)
 
 
+_SMALL_VIT = {"model.backbone": "vit", "model.image_size": 32,
+              "model.vit_patch": 8, "model.vit_dim": 32, "model.vit_heads": 4}
+
+
 @pytest.mark.parametrize("overrides", [
     {"model.proprio_dropout": 0.1},
-    {"model.backbone": "vit", "model.vit_depth": 2},
-    {"model.backbone": "vit", "model.vit_pool": "mean"},
-    {"model.backbone": "vit", "model.vit_pool": "cls"},
+    {**_SMALL_VIT, "model.vit_depth": 2},
+    {**_SMALL_VIT, "model.vit_depth": 1, "model.vit_pool": "mean"},
+    {**_SMALL_VIT, "model.vit_depth": 1, "model.vit_pool": "cls"},
 ])
 def test_options_outside_the_slice_raise(overrides):
-    """The ViT backbone raises when the model is built. Proprio dropout,
-    in the port since item 9, raises at a train-mode forward without the
-    generator its mask is drawn from, draws one with it, and is the
-    identity in eval mode."""
+    """The ViT backbone (ROADMAP queue A, item 10) builds and
+    serves the JAX package's poses from the same weights, in both pools.
+    Proprio dropout, in the port since item 9, raises at a train-mode
+    forward without the generator its mask is drawn from, draws one with
+    it, and is the identity in eval mode."""
     jcfg, cfg = _cfgs(**overrides)
+    if cfg.model.backbone == "vit":
+        variables = random_jax_variables(cfg.model, seed=9)
+        _pose_parity(jcfg, cfg, variables,
+                     state_dict_from_jax(variables, cfg.model),
+                     _batch(cfg, 2, seed=9))
+        return
     batch = example_batch(jcfg.model, batch_size=2)
     batch = {"images": {k: torch.from_numpy(v)
                         for k, v in batch["images"].items()},
              "proprio": torch.from_numpy(batch["proprio"])}
-    if cfg.model.backbone == "vit":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            PoseEstimator(cfg.model)
-        return
     model = PoseEstimator(cfg.model)
     with pytest.raises(ValueError, match="torch.Generator"):
         model.train()(batch)

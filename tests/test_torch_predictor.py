@@ -152,11 +152,18 @@ def test_port_imports_no_jax():
         "import rgb_proprioceptive_pose_estimator_tpu_torch.ops.image_augment_device\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.obs_buffer\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.serve\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.models.vit\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.export\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.sweep\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.viz\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.data.repack\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.data.playback\n"
         "ref = 'rgb_proprioceptive_pose_estimator_tpu'\n"
-        "# the card's host has no h5py and may have no OpenCV (the server\n"
-        "# imports it to decode jpeg/png alone); optax is the JAX package's\n"
-        "# optimizer\n"
-        "banned = ('jax', 'flax', 'optax', 'h5py', 'cv2')\n"
+        "# the card's host has no h5py, matplotlib or mujoco and may have no\n"
+        "# OpenCV (the server imports it to decode jpeg/png alone); optax is\n"
+        "# the JAX package's optimizer\n"
+        "banned = ('jax', 'flax', 'optax', 'h5py', 'cv2', 'matplotlib',\n"
+        "          'mujoco')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in banned\n"
         "             or m == ref or m.startswith(ref + '.'))\n"

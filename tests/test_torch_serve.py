@@ -374,7 +374,7 @@ def test_cli_serve_answers_over_http(tmp_path):
     checkpoint.save_step(str(tmp_path), 3, 0, cfg, sd, {"step": 3})
     cfg_path = tmp_path / "cfg.json"
     cfg_path.write_text(cfg.to_json())
-    assert "serve" in cli.PORTED and "serve" not in cli.LATER
+    assert "serve" in cli.COMMANDS
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "rgb_proprioceptive_pose_estimator_tpu_torch.cli",
