@@ -8,7 +8,15 @@ Phases, one or more lines each, and the last line is the result:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels of csrc/, built with nvcc from the checkout,
-   with ptxas' registers and spills of each (no spills allowed);
+   with ptxas' registers and spills of each (no spills allowed); then the
+   import surface: a fresh process imports every subpackage of the port
+   and resolves its exports and the names of the reference's
+   subpackages' ``__all__`` (read from their files as text; the port's
+   name where its ``REFERENCE_NAMES`` maps one), loading none of jax,
+   flax, optax, h5py, cv2, matplotlib, mujoco or the JAX package; the
+   render child's import loads no torch; the quaternion algebra of
+   ops/pose_math.py on the card against the CPU, and random_quaternion
+   from a CUDA generator (unit norm, second moment I/4 at 2^20 draws);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the same inputs, at the shapes of a pr3 step at batch 128, then at
    those of a pr4 step at batch 256 (ResNet-50 at 224x224: 33 BN-ReLU
@@ -77,7 +85,9 @@ Phases, one or more lines each, and the last line is the result:
    per update, samples/s, busy time, idle share, peak memory, launches);
    the accumulated update against one from the mean of the micro-batches'
    gradients, the EMA against its formula, the recalibrated statistics
-   against the batches' own, and a resume from micro-step 6 bit for bit;
+   against the batches' own at model.bn_momentum 0.9 and through the
+   reference's recovery (0.9 old + 0.1 b - m old) / (1 - m) at 0.99, and
+   a resume from micro-step 6 bit for bit;
    pr3 at full width in f32: model.freeze_backbone (no K2 backward),
    train.init_from_torch from a seeded torchvision ResNet-18 .npz,
    model.proprio_dropout, early stopping against the CPU, and
@@ -126,6 +136,13 @@ Phases, one or more lines each, and the last line is the result:
    sites; launches summed over every main path, the ranks' included),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
+
+Two parts of the port are held on the CPU alone (tests/), not here:
+scripts/torch_from_orbax.py, which converts the JAX package's orbax
+checkpoints and needs JAX, which the card's host lacks; and the examples
+of examples/torch/, which write HDF5 fixtures, and the card's host has no
+h5py. What they run on the card (pr2 training, serving, the export) is
+driven above by phases 7, 4 and 19.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It fails without CUDA. It imports nothing of JAX. Whether it
@@ -277,6 +294,10 @@ ACCUM_UPDATE_REL, EMA_REL = 1e-5, 1e-6
 # statistic's largest value (f32 sums of up to 3.1 M bf16 values a
 # channel, and the momentum recovery scales their rounding by 10)
 RECAL_REL = 1e-3
+# model.bn_momentum of the recalibration checks: every preset's 0.9, and
+# 0.99, where the reference recovers 10 b - 9 old (its layers, and the
+# port's, update with 0.9 whatever the knob says)
+RECAL_MOMENTA = (0.9, 0.99)
 PR3_FREEZE_STEPS = 4
 # pr3's early stopping at full width, at a batch the CPU runs in seconds
 EARLY_BATCH, EARLY_STEPS, EARLY_LR = 16, 12, 1e-3
@@ -2396,11 +2417,16 @@ def check_accumulation(c, dataset, dev, smi):
 
 
 def check_recalibration(state, c, dataset, dev, smi):
-    """recalibrate_batch_stats of the EMA weights on PR5_RECAL batches
-    against the statistics of each BatchNorm's input taken by a hook in
-    f64 (mean, unbiased variance) on the same train-mode forwards,
-    averaged over the batches; the model's own statistics are left as
-    they were."""
+    """recalibrate_batch_stats of the EMA weights on PR5_RECAL batches,
+    with model.bn_momentum m as fit passes it, against the statistics b
+    of each BatchNorm's input taken by a hook in f64 (mean, unbiased
+    variance) on the same train-mode forwards, mapped through the
+    reference's recovery (0.9 old + 0.1 b - m old) / (1 - m) (the layers
+    update with 0.9 whatever m is; at m = 0.9 this is b) and averaged over
+    the batches; the model's own statistics are left as they were. The
+    limit is RECAL_REL at 0.9, scaled by (1 - 0.9) / (1 - m): the
+    recovery divides the f32 rounding of the updated statistic by
+    1 - m."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.engine.state import (
         serving,
     )
@@ -2413,11 +2439,16 @@ def check_recalibration(state, c, dataset, dev, smi):
     )
 
     model = state.model
+    m = c.model.bn_momentum
+    limit = RECAL_REL * (1.0 - 0.9) / (1.0 - m)
     batches = _device_batches(dataset, PR5_MICRO, PR5_RECAL, dev,
                               first=PR5_ACCUM)
     before = {k: v.clone() for k, v in model.state_dict().items()}
+    layers = {n: mod for n, mod in model.named_modules()
+              if isinstance(mod, BatchNormAct)}
     with serving(model, state.ema):
-        got = recalibrate_batch_stats(model, batches, c.train.seed)
+        got = recalibrate_batch_stats(model, batches, c.train.seed,
+                                      momentum=m)
         sums = {}
 
         def hook(name):
@@ -2448,24 +2479,29 @@ def check_recalibration(state, c, dataset, dev, smi):
             model.load_state_dict(saved)
     worst, where = 0.0, ""
     for name, (mean, var) in sums.items():
-        for key, want in ((f"{name}.running_mean", mean),
-                          (f"{name}.running_var", var)):
+        layer_m = layers[name].momentum
+        for key, batch in ((f"{name}.running_mean", mean),
+                           (f"{name}.running_var", var)):
+            old = before[key].double()
+            want = ((layer_m - m) * old + (1.0 - layer_m) * batch) / (1.0 - m)
             err = float((got[key].double() - want).abs().max()
                         / want.abs().max().clamp_min(1e-30))
             if err > worst:
                 worst, where = err, key
     unchanged = all(torch.equal(v, before[k])
                     for k, v in model.state_dict().items())
-    print(f"extras pr5 BN recalibration ({PR5_RECAL} batches of "
-          f"{PR5_MICRO}, the EMA weights, {len(sums)} BatchNorms): against "
-          f"the f64 statistics of each BatchNorm's input averaged over the "
-          f"batches, worst {worst:.3g} of a statistic's largest at {where} "
-          f"(limit {RECAL_REL}); the model's own statistics unchanged: "
-          f"{unchanged} ({smi})", flush=True)
+    print(f"extras pr5 BN recalibration at model.bn_momentum {m} "
+          f"({PR5_RECAL} batches of {PR5_MICRO}, the EMA weights, "
+          f"{len(sums)} BatchNorms): against the f64 statistics of each "
+          f"BatchNorm's input through the reference's recovery, averaged "
+          f"over the batches, worst {worst:.3g} of a statistic's largest at "
+          f"{where} (limit {limit:.3g}); the model's own statistics "
+          f"unchanged: {unchanged} ({smi})", flush=True)
     check(len(sums) > 0 and len(got) == 2 * len(sums),
           "recalibration: statistics missing")
-    check(worst <= RECAL_REL, "recalibrated statistics differ from the "
-                              "batches' statistics")
+    check(worst <= limit, f"recalibrated statistics at bn_momentum {m} "
+                          "differ from the reference's recovery of the "
+                          "batches' statistics")
     check(unchanged, "recalibration changed the model's statistics")
 
 
@@ -2601,7 +2637,10 @@ def phase_extras_pr5(rppt, fused, dev, smi, ckpt_root, dataset):
     try:
         _zero_counts(fused)
         state = check_accumulation(c, dataset, dev, smi)
-        check_recalibration(state, c, dataset, dev, smi)
+        for momentum in RECAL_MOMENTA:
+            check_recalibration(
+                state, c.override(**{"model.bn_momentum": momentum}),
+                dataset, dev, smi)
         torch.cuda.synchronize()
         launches["extras pr5 checks"] = _counts(fused)
     finally:
@@ -4023,6 +4062,146 @@ def phase_sweep(rppt, dev, smi, ckpt_root):
           "sweep: runs not recorded, or the second call trained again")
 
 
+# the port's subpackages; their exports, and the reference's __all__
+# names each must resolve (read from the reference's files as text: the
+# card's host cannot import the JAX package)
+SUBPACKAGES = ("models", "data", "engine", "losses", "ops", "parallel",
+               "runtime", "utils")
+# modules the card's host lacks, and the JAX package: none may load with
+# the port
+BANNED = ("jax", "flax", "optax", "h5py", "cv2", "matplotlib", "mujoco",
+          "rgb_proprioceptive_pose_estimator_tpu")
+QUAT_ATOL = 1e-6
+QUAT_DRAWS = 2 ** 20
+QUAT_MOMENT_TOL = 0.01
+
+_SURFACE_CHILD = r"""
+import json, sys
+import rgb_proprioceptive_pose_estimator_tpu_torch as rppt
+import importlib
+subs, reference, banned = json.loads(sys.argv[1])
+unresolved, names = [], 0
+for sub, ref_names in zip(subs, reference):
+    m = importlib.import_module(f"rgb_proprioceptive_pose_estimator_tpu_torch.{sub}")
+    renamed = getattr(m, "REFERENCE_NAMES", {})
+    not_owed = getattr(m, "NOT_OWED", {})
+    for name in set(m.__all__) | set(ref_names):
+        if name in not_owed:
+            continue
+        obj = m
+        try:
+            for part in renamed.get(name, name).split("."):
+                obj = getattr(obj, part)
+            names += 1
+        except AttributeError:
+            unresolved.append(f"{sub}.{name}")
+loaded = sorted({n.split(".")[0] for n in sys.modules} & set(banned))
+print(json.dumps({"names": names, "unresolved": unresolved,
+                  "loaded": loaded, "version": rppt.__version__}))
+"""
+
+
+def _reference_all(sub: str) -> list:
+    """The ``__all__`` list of the reference's subpackage, read from its
+    file as text."""
+    import ast
+
+    path = (Path(__file__).resolve().parent
+            / "rgb_proprioceptive_pose_estimator_tpu" / sub / "__init__.py")
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets)):
+            return list(ast.literal_eval(node.value))
+    raise ValueError(f"{path}: no __all__")
+
+
+def phase_surface(dev, smi):
+    """The import surface and the quaternion algebra on the card's host:
+    a fresh process imports every subpackage of the port, resolves each
+    one's exports and the reference's ``__all__`` names (under the port's
+    name where ``REFERENCE_NAMES`` maps one; ``NOT_OWED`` names skipped),
+    and loads none of BANNED; the render child's import loads no torch;
+    the five quaternion functions on the card against the CPU within
+    QUAT_ATOL; ``random_quaternion`` from a CUDA generator: unit norm
+    within QUAT_ATOL and a second moment within QUAT_MOMENT_TOL of I/4 at
+    QUAT_DRAWS draws."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.ops import pose_math as pm
+
+    t0 = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    arg = json.dumps([SUBPACKAGES, [_reference_all(s) for s in SUBPACKAGES],
+                      BANNED])
+    proc = subprocess.run([sys.executable, "-c", _SURFACE_CHILD, arg],
+                          capture_output=True, text=True, env=env, cwd=root,
+                          timeout=300)
+    check(proc.returncode == 0, f"surface: the import process failed: "
+                                f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not report["unresolved"],
+          f"surface: names not resolved {report['unresolved']}")
+    check(not report["loaded"], f"surface: loaded {report['loaded']}")
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "import rgb_proprioceptive_pose_estimator_tpu_torch.data.playback\n"
+         "print('torch' in sys.modules)"],
+        capture_output=True, text=True, cwd=root, timeout=120,
+        env=dict(env, _RPPE_RENDER_WORKER="1"))
+    check(child.returncode == 0 and child.stdout.strip() == "False",
+          f"surface: the render child imported torch or failed: "
+          f"{child.stdout}{child.stderr[-2000:]}")
+
+    gen = torch.Generator().manual_seed(3)
+
+    def unit(*shape):
+        q = torch.randn(*shape, 4, generator=gen)
+        return q / q.norm(dim=-1, keepdim=True)
+
+    a, b = unit(4096), unit(1, 4096)
+    v = torch.randn(4096, 3, generator=gen)
+    axis = torch.randn(4096, 3, generator=gen)
+    axis[0] = 0.0
+    angle = (torch.rand(4096, generator=gen) * 2 - 1) * math.pi
+    u = torch.rand(3, 4096, generator=gen)
+    cases = {
+        "quat_conjugate": (pm.quat_conjugate, (a,)),
+        "quat_multiply": (pm.quat_multiply, (a, b)),
+        "quat_rotate": (pm.quat_rotate, (a, v)),
+        "quat_from_axis_angle": (pm.quat_from_axis_angle, (axis, angle)),
+        "random_quaternion's map": (pm.quat_from_uniform, (u,)),
+    }
+    errs = {}
+    for name, (fn, args) in cases.items():
+        want = fn(*args)
+        got = fn(*(x.to(dev) for x in args))
+        check(got.device.type == "cuda", f"{name}: not on the card")
+        errs[name] = float((got.cpu() - want).abs().max())
+    worst = max(errs, key=errs.get)
+    cuda_gen = torch.Generator(device=dev).manual_seed(7)
+    q = pm.random_quaternion((QUAT_DRAWS,), generator=cuda_gen)
+    check(q.device.type == "cuda", "random_quaternion: not on the card")
+    norm_err = float((q.norm(dim=-1) - 1).abs().max())
+    qd = q.double()
+    moment_err = float(((qd.T @ qd) / QUAT_DRAWS
+                        - torch.eye(4, dtype=torch.float64, device=dev) / 4
+                        ).abs().max())
+    print(f"surface: {len(SUBPACKAGES)} subpackages, {report['names']} "
+          f"names resolved (the port's exports and the reference's, "
+          f"version {report['version']}), none of {list(BANNED)} loaded, the "
+          f"render child without torch; quaternion functions card vs CPU "
+          f"worst {errs[worst]:.3g} ({worst}; limit {QUAT_ATOL}); "
+          f"random_quaternion x {QUAT_DRAWS} from a CUDA generator: |q| - 1 "
+          f"{norm_err:.3g} (limit {QUAT_ATOL}), E[q q^T] - I/4 "
+          f"{moment_err:.3g} (limit {QUAT_MOMENT_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    check(errs[worst] <= QUAT_ATOL, f"surface: {worst} differs from the CPU")
+    check(norm_err <= QUAT_ATOL, "random_quaternion: not unit norm")
+    check(moment_err <= QUAT_MOMENT_TOL,
+          "random_quaternion: second moment is not I/4")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4053,6 +4232,7 @@ def main() -> int:
             print(f"ptxas {source}: {kernel}: {regs} registers, spill stores "
                   f"and loads {spills} bytes", flush=True)
             check(spills == 0, f"{kernel} spills {spills} bytes")
+    phase_surface(dev, smi)
 
     # the JSON line's numbers are pr3's f32 sites; pr4's are printed
     summary = {"normalize_u8": phase_normalize_u8(fused, dev),

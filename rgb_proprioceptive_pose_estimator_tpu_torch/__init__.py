@@ -44,6 +44,8 @@ if not _os.environ.get("_RPPE_RENDER_WORKER"):
         run_sweep,
     )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Config",
     "DataConfig",
@@ -57,4 +59,5 @@ __all__ = [
     "predict",
     "train",
     "run_sweep",
+    "__version__",
 ]

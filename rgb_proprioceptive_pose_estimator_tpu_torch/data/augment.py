@@ -21,13 +21,23 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 
-try:
-    import cv2
+_cv2 = None        # OpenCV once first asked for; False where it is missing
 
-    cv2.setNumThreads(0)  # threading is managed by the pipeline workers
-    _HAS_CV2 = True
-except Exception:  # pragma: no cover
-    _HAS_CV2 = False
+
+def _opencv():
+    """OpenCV, imported at first use rather than with this module (the
+    card's host may have none, and the package imports no OpenCV at
+    import time), or None where it is missing."""
+    global _cv2
+    if _cv2 is None:
+        try:
+            import cv2
+
+            cv2.setNumThreads(0)  # threading is managed by the pipeline workers
+            _cv2 = cv2
+        except Exception:  # pragma: no cover
+            _cv2 = False
+    return _cv2 or None
 
 
 class AugParams(NamedTuple):
@@ -245,7 +255,8 @@ def decode_image(buf: np.ndarray) -> np.ndarray:
     """JPEG/PNG bytes (1-D uint8) -> RGB uint8 HWC (C2 "decode",
     BASELINE.json:5; VERDICT r1 missing-3). Bytes are produced/consumed in
     standard channel order (files are viewable by any image tool)."""
-    if not _HAS_CV2:
+    cv2 = _opencv()
+    if cv2 is None:
         raise RuntimeError(
             "opencv is required to decode encoded image observations")
     img = cv2.imdecode(buf, cv2.IMREAD_COLOR)
@@ -258,7 +269,8 @@ def encode_image(img: np.ndarray, ext: str = ".jpg",
                  quality: int = 95) -> np.ndarray:
     """RGB uint8 HWC -> encoded bytes (1-D uint8). Inverse of decode_image
     (lossy for JPEG)."""
-    if not _HAS_CV2:
+    cv2 = _opencv()
+    if cv2 is None:
         raise RuntimeError("opencv is required to encode images")
     params = ([int(cv2.IMWRITE_JPEG_QUALITY), quality]
               if ext in (".jpg", ".jpeg") else [])
@@ -272,7 +284,8 @@ def resize(img: np.ndarray, out_hw: int) -> np.ndarray:
     """uint8 HWC resize (bilinear)."""
     if img.shape[0] == out_hw and img.shape[1] == out_hw:
         return img
-    if _HAS_CV2:
+    cv2 = _opencv()
+    if cv2 is not None:
         return cv2.resize(img, (out_hw, out_hw), interpolation=cv2.INTER_LINEAR)
     # numpy nearest fallback
     ys = (np.arange(out_hw) * img.shape[0] / out_hw).astype(np.int64)

@@ -231,6 +231,11 @@ def restore_training(state: TrainState, path: str, ema_on: bool
     at its parameters; off: the checkpoint's is dropped). Returns the
     checkpoint's training state."""
     _, state_dict, training = checkpoint.load_training(path)
+    if "optimizer" not in (training or {}):
+        raise ValueError(
+            f"{path} holds no optimizer state (a serving checkpoint, such "
+            "as scripts/torch_from_orbax.py writes): a run does not resume "
+            "from it; warm-start with train.init_from=<its directory>")
     state.model.load_state_dict(state_dict, strict=True)
     state.optimizer.load_state_dict(training["optimizer"])
     state.step = int(training["step"])
@@ -498,7 +503,8 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
             return recalibrate_batch_stats(
                 model, (next(train_pipe)
                         for _ in range(tcfg.ema_bn_recal_batches)),
-                tcfg.seed, train_cache, device_aug)
+                tcfg.seed, train_cache, device_aug,
+                momentum=cfg.model.bn_momentum)
 
     # as the reference: whenever the model has statistics (BatchNorm's, or
     # proprio normalization's, which a train-mode forward leaves as they

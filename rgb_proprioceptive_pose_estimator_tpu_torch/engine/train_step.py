@@ -487,14 +487,19 @@ def train_step(state, batch: Dict, cfg: TrainConfig,
 def recalibrate_batch_stats(model: torch.nn.Module, batches: Iterable[Dict],
                             seed: int,
                             image_cache: Optional[Dict] = None,
-                            device_aug: Optional[Dict] = None
+                            device_aug: Optional[Dict] = None,
+                            momentum: float = 0.9
                             ) -> Dict[str, torch.Tensor]:
     """BatchNorm running statistics for ``model``'s weights (torch
     ``swa_utils.update_bn``, the reference's ``recalibrate_batch_stats``):
     a train-mode forward of each batch of ``batches``, each from the
     model's own statistics, whose update gives back the batch's
-    statistic as ``(new - m * old) / (1 - m)``; the result is their
-    cumulative average, as ``{state_dict key: tensor}``. The model's
+    statistic as ``(new - m * old) / (1 - m)`` with ``m = momentum``,
+    which fit passes as ``model.bn_momentum`` (the reference's rule;
+    the layers themselves always update with 0.9, so at another value
+    the result is ``(0.9 * old + 0.1 * b - m * old) / (1 - m)``, as in
+    the reference); the result is their cumulative average, as
+    ``{state_dict key: tensor}``. The model's
     statistics are left as they were. On a rank of a group the forwards'
     statistics are the global batch's. Each batch goes through
     ``prepare_batch`` with ``image_cache`` and ``device_aug``, drawn from
@@ -522,7 +527,7 @@ def recalibrate_batch_stats(model: torch.nn.Module, batches: Iterable[Dict],
             model(batch, generator=generator)
             for k, m, b in keys:
                 new = getattr(m, b)
-                per_batch = (new - m.momentum * old[k]) / (1.0 - m.momentum)
+                per_batch = (new - momentum * old[k]) / (1.0 - momentum)
                 cum[k] = (per_batch if i == 0
                           else cum[k] + (per_batch - cum[k]) / float(i + 1))
                 new.copy_(old[k])

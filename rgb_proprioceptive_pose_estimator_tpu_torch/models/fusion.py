@@ -276,3 +276,8 @@ class PoseEstimator(nn.Module):
         if cfg.rot_rep == "rot6d":
             return out[..., :3], rot6d_to_quat(out[..., 3:])
         return out[..., :3], quat_normalize(out[..., 3:])
+
+
+def build_model(cfg: ModelConfig) -> PoseEstimator:
+    """The model of ``cfg`` (the reference's ``build_model``)."""
+    return PoseEstimator(cfg)

@@ -1,15 +1,20 @@
 """Quaternion math of the serving and training paths (counterpart of the
-JAX package's ``ops/pose_math.py``): normalization, the distances the
-losses and metrics use, the rotation matrix and continuous 6D forms
-of the rot6d head, and the pose mirror of device augmentation's label-
-consistent flip. The rest of that module (products) comes in a later
-slice.
+JAX package's ``ops/pose_math.py``): normalization, the quaternion
+algebra (conjugate, Hamilton product, rotation of vectors, axis-angle,
+uniform random draws), the distances the losses and metrics use, the
+rotation matrix and continuous 6D forms of the rot6d head, and the pose
+mirror of device augmentation's label-consistent flip. Quaternions are
+(w, x, y, z), and every function broadcasts over leading batch axes as
+the reference's does.
 
 Every distance depends only on <q, q'>, so it is invariant to the storage
 convention and to the antipodal sign q ~ -q.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +53,69 @@ def mirror_pose(pos: torch.Tensor, quat: torch.Tensor, axis: int = 0,
 def quat_normalize(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Normalize to a unit quaternion (soft norm, see _soft_normalize)."""
     return _soft_normalize(q, eps)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) -> (w, -x, -y, -z)."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a * b, broadcasting over batch."""
+    aw, ax, ay, az = torch.unbind(a, dim=-1)
+    bw, bx, by, bz = torch.unbind(b, dim=-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate 3-vectors v by unit quaternions q."""
+    w = q[..., :1]
+    u = q[..., 1:]
+    u, v = torch.broadcast_tensors(u, v)   # linalg.cross wants equal ranks
+    uv = torch.linalg.cross(u, v)
+    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv))
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor
+                         ) -> torch.Tensor:
+    """Unit quaternion for a rotation of ``angle`` radians about ``axis``
+    (a zero axis gives the identity's (cos, 0, 0, 0))."""
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True).clamp_min(
+        1e-8)
+    half = angle[..., None] * 0.5
+    return torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
+
+
+def quat_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Shoemake's map from three uniform [0, 1) draws ``u`` (3, ...) to
+    uniformly distributed unit quaternions (..., 4)."""
+    u1, u2, u3 = u
+    a = torch.sqrt(1.0 - u1)
+    b = torch.sqrt(u1)
+    return torch.stack([
+        a * torch.sin(2 * math.pi * u2),
+        a * torch.cos(2 * math.pi * u2),
+        b * torch.sin(2 * math.pi * u3),
+        b * torch.cos(2 * math.pi * u3),
+    ], dim=-1)
+
+
+def random_quaternion(shape: Sequence[int] = (),
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> torch.Tensor:
+    """Uniform random unit quaternions of batch shape ``shape`` (f32),
+    drawn from ``generator`` on ``device`` (the generator's when it is
+    given) by Shoemake's subgroup algorithm."""
+    if device is None and generator is not None:
+        device = generator.device
+    return quat_from_uniform(torch.rand((3,) + tuple(shape),
+                                        generator=generator, device=device))
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,8 @@ model and optimizer state); the other ranks' writers return the path
 rank 0 writes, and every rank reads the same file on resume.
 
 The JAX package's orbax checkpoints need JAX to read; converting them is
-a tool outside the port's runtime (``utils.convert.state_dict_from_jax``
-takes the restored variables).
+a tool outside the port's runtime, ``scripts/torch_from_orbax.py``, which
+writes such a file (the EMA in its training state, no optimizer state).
 """
 
 from __future__ import annotations

@@ -158,6 +158,14 @@ def test_port_imports_no_jax():
         "import rgb_proprioceptive_pose_estimator_tpu_torch.utils.viz\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.data.repack\n"
         "import rgb_proprioceptive_pose_estimator_tpu_torch.data.playback\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.data\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.engine\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.losses\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.models\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.ops\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.parallel\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.runtime\n"
+        "import rgb_proprioceptive_pose_estimator_tpu_torch.utils\n"
         "ref = 'rgb_proprioceptive_pose_estimator_tpu'\n"
         "# the card's host has no h5py, matplotlib or mujoco and may have no\n"
         "# OpenCV (the server imports it to decode jpeg/png alone); optax is\n"
