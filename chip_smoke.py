@@ -132,7 +132,14 @@ Phases, one or more lines each, and the last line is the result:
    against the Predictor, int8 against f32, bytes and p50 against the
    Predictor's; a pr1 sweep (utils/sweep.py) of two runs, whose second
    call trains nothing;
-20. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
+20. accuracy: the image-only row of scripts/torch_accuracy_artifact.py
+   (the accuracy battery) at its default fixture, 40 demos x 60 steps at
+   160 px built in memory, pr3 from the device cache with device
+   augmentation for ACC_STEPS steps, its best checkpoint scored on the
+   held-out demos: pos MAE at most 0.5 and rot MAE at most 0.8 of the
+   fixture's chance level (the train split's mean pose scored on the
+   held-out demos); K2 forward and backward launched;
+21. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
    sites; launches summed over every main path, the ranks' included),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
@@ -151,6 +158,7 @@ passes or fails, no process it started is left when it exits.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -349,6 +357,12 @@ VIT_BF16_CALLS = {"train.steps_per_call": 4, "train.log_every": 4}
 # artifact's, |<q8, q32>| within 0.01 of 1; latency over EXPORT_ITERS
 EXPORT_MAX_BATCH, EXPORT_RTOL, EXPORT_ATOL = 8, 1e-5, 1e-6
 INT8_POS_ATOL, INT8_QUAT_ATOL, EXPORT_ITERS = 0.05, 0.01, 30
+# the accuracy battery's image-only row (scripts/torch_accuracy_artifact.py)
+# at its default fixture, cut to ACC_STEPS train steps: held-out pos MAE
+# at most ACC_POS_SHARE and rot MAE at most ACC_ROT_SHARE of the fixture's
+# chance level (the train split's mean pose)
+ACC_STEPS = 1500
+ACC_POS_SHARE, ACC_ROT_SHARE = 0.5, 0.8
 
 
 class SmokeFailure(RuntimeError):
@@ -4062,6 +4076,52 @@ def phase_sweep(rppt, dev, smi, ckpt_root):
           "sweep: runs not recorded, or the second call trained again")
 
 
+def phase_accuracy(fused, dev, smi, ckpt_root, steps=ACC_STEPS):
+    """The accuracy battery's runner on the card: the image-only row of
+    scripts/torch_accuracy_artifact.py at its default fixture (40 demos x
+    60 steps at 160 px, built in memory), pr3 with the device cache and
+    device augmentation for ``steps`` train steps, its best checkpoint
+    scored on the 8 held-out demos; held to the fixture's chance level,
+    the held-out MAE of the train split's mean pose."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_accuracy_artifact",
+        Path(__file__).resolve().parent / "scripts"
+        / "torch_accuracy_artifact.py")
+    acc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(acc)
+    args = acc.parse_args(["--steps", str(steps), "--device", str(dev),
+                           "--out", f"{ckpt_root}/accuracy"])
+    t = time.perf_counter()
+    _zero_counts(fused)
+    out = acc.run_row(args, "image-only", {}, dev)
+    counts = _counts(fused)
+    seconds = time.perf_counter() - t
+    row = out["results"]["image-only"]
+    chance = acc.chance_level(out["cfg"], out["fixtures"])
+    print(f"accuracy image-only: {args.demos} demos x {args.demo_steps} "
+          f"steps at {args.image_hw} px, {steps} train steps at batch "
+          f"{args.batch}, {out['cfg'].model.dtype}: held-out "
+          f"{json.dumps(row)}; chance {chance['pos_mae_cm']:.2f} cm "
+          f"{chance['rot_mae_deg']:.2f} deg (shares "
+          f"{row['pos_mae_cm'] / chance['pos_mae_cm']:.3f} pos, "
+          f"{row['rot_mae_deg'] / chance['rot_mae_deg']:.3f} rot; limits "
+          f"{ACC_POS_SHARE}, {ACC_ROT_SHARE}); {seconds:.1f} s in all, "
+          f"{out['seconds']:.1f} s training and scoring; launches "
+          f"{json.dumps(counts)} ({smi})", flush=True)
+    check(row["pos_mae_cm"] <= ACC_POS_SHARE * chance["pos_mae_cm"],
+          f"accuracy: image-only pos MAE {row['pos_mae_cm']} cm above "
+          f"{ACC_POS_SHARE} x chance {chance['pos_mae_cm']:.2f}")
+    check(row["rot_mae_deg"] <= ACC_ROT_SHARE * chance["rot_mae_deg"],
+          f"accuracy: image-only rot MAE {row['rot_mae_deg']} deg above "
+          f"{ACC_ROT_SHARE} x chance {chance['rot_mae_deg']:.2f}")
+    check(counts["scale_bias_relu"] > 0
+          and counts["scale_bias_relu_backward"] > 0,
+          f"accuracy: K2 forward or backward not launched: {counts}")
+    del out
+    torch.cuda.empty_cache()
+    return counts
+
+
 # the port's subpackages; their exports, and the reference's __all__
 # names each must resolve (read from the reference's files as text: the
 # card's host cannot import the JAX package)
@@ -4324,6 +4384,9 @@ def main() -> int:
         paths.update(phase_export(rppt, fused, smi, ckpt_root, {
             "pr3": f"{ckpt_root}/pr3_reduce_f32", "pr3 vit": vit_dir}))
         phase_sweep(rppt, dev, smi, ckpt_root)
+        # the accuracy battery's image-only row, scored on held-out demos
+        paths["accuracy image-only"] = phase_accuracy(fused, dev, smi,
+                                                      ckpt_root)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

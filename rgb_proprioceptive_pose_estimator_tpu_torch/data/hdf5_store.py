@@ -27,7 +27,7 @@ import glob as _glob
 import os
 import re
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -204,7 +204,7 @@ class HDF5DemoStore:
         if len(set(stems)) != len(stems):   # same basename in two dirs
             stems = [f"{fi}_{s}" for fi, s in enumerate(stems)]
         multi = len(self.paths) > 1
-        fhs = [_h5py().File(p, "r") for p in self.paths]
+        fhs = [self._open(fi) for fi in range(len(self.paths))]
         try:
             demos: List[Tuple[int, str]] = []
             for fi, f in enumerate(fhs):
@@ -290,7 +290,7 @@ class HDF5DemoStore:
                                          if len(parts) > 1 else parts[0])
                 for cam in self.cameras:
                     ds = g[self.image_key_format.format(camera=cam)]
-                    enc = _h5py().check_vlen_dtype(ds.dtype) is not None
+                    enc = self._is_encoded(ds)
                     prev = self._encoded.setdefault(cam, enc)
                     if prev != enc:
                         raise ValueError(
@@ -352,7 +352,7 @@ class HDF5DemoStore:
         self._raw_flat: Dict[str, np.ndarray] = {}
         if cache_images:
             cache: Dict[Tuple[int, str], np.ndarray] = {}
-            fhs = [_h5py().File(p, "r") for p in self.paths]
+            fhs = [self._open(fi) for fi in range(len(self.paths))]
             try:
                 for cam in self.cameras:
                     key = self.image_key_format.format(camera=cam)
@@ -369,7 +369,8 @@ class HDF5DemoStore:
                         for di, (fi, dk) in enumerate(self._demo_loc):
                             lo = self._demo_off[di]
                             hi = self._demo_off[di + 1]
-                            fhs[fi]["data"][dk][key].read_direct(flat[lo:hi])
+                            self._read_into(fhs[fi]["data"][dk][key],
+                                            flat[lo:hi])
                         self._raw_flat[cam] = flat
                     else:
                         for di, (fi, dk) in enumerate(self._demo_loc):
@@ -383,6 +384,19 @@ class HDF5DemoStore:
 
     # -- low-level access ---------------------------------------------------
 
+    def _open(self, fi: int):
+        """The file of ``self.paths[fi]``, opened for reading."""
+        return _h5py().File(self.paths[fi], "r")
+
+    @staticmethod
+    def _is_encoded(ds) -> bool:
+        """Whether an image dataset holds encoded (vlen byte) frames."""
+        return _h5py().check_vlen_dtype(ds.dtype) is not None
+
+    @staticmethod
+    def _read_into(ds, out: np.ndarray) -> None:
+        ds.read_direct(out)
+
     def _fileh(self, fi: int) -> "h5py.File":
         """Per-(thread, file) h5py handle -- h5py is not safe across
         threads on a shared handle (SURVEY.md section 4.4)."""
@@ -391,7 +405,7 @@ class HDF5DemoStore:
             d = self._local.files = {}
         f = d.get(fi)
         if f is None:
-            f = d[fi] = _h5py().File(self.paths[fi], "r")
+            f = d[fi] = self._open(fi)
         return f
 
     def _demo_raw(self, demo: int, cam: str) -> np.ndarray:
@@ -705,8 +719,7 @@ def _quat_to_mat(q: np.ndarray) -> np.ndarray:
     ], axis=1)
 
 
-def write_demo_fixture(
-    path: str,
+def demo_fixture_arrays(
     n_demos: int = 3,
     steps: int = 20,
     cameras: Sequence[str] = ("agentview", "robot0_eye_in_hand"),
@@ -718,7 +731,6 @@ def write_demo_fixture(
     # (an eef-pose-like signal that CORRELATES with the target without
     # copying it -- the robosuite situation; 0 = off)
     proprio_pose_noise: float = 0.0,
-    encoding: str = "raw",   # "raw" | "jpeg" | "png" per-frame image storage
     # Per-camera occlusion (VERDICT r2 next-4: dual-camera must be shown
     # to HELP): when > 0, even-indexed cameras render the marker +
     # satellites only while pos_x < 0.5 + delta and odd-indexed only while
@@ -740,9 +752,6 @@ def write_demo_fixture(
     # e.g. np.logspace(-2, 3, D) for mixed-unit raw robot state); the
     # model.proprio_normalize demonstration fixture. None/1.0 = off.
     proprio_scale=None,
-    # robomimic filter keys: {"name": [demo indices]} written as
-    # mask/<name> datasets of demo-name bytes (data.filter_key reads them)
-    filter_keys=None,
     # Mislabeled-frame corruption (the failure mode train.pos_loss="huber"
     # exists for): this fraction of frames gets its stored POSITION label
     # replaced with a uniform-random point, AFTER rendering -- the image
@@ -750,8 +759,8 @@ def write_demo_fixture(
     # separate RNG stream, so a clean twin written with the same seed has
     # bit-identical images/proprio and differs only in the bad labels.
     label_outlier_frac: float = 0.0,
-) -> str:
-    """Write a tiny robomimic-layout HDF5 demo file whose images are
+) -> Iterator[Dict]:
+    """The demos of a tiny robomimic-layout demo file whose images are
     *informative*: a bright marker is drawn at the pixel projection of the
     target position, so a CNN can actually regress the pose -- this is what
     makes the image-path integration test a real learning test.
@@ -774,141 +783,233 @@ def write_demo_fixture(
     e_2=(0,0,1), with (R e_i)_z in the green channel, determine R
     completely -- and remain label-consistent under the same mirror (the
     reflection maps R to MRM, so satellites of the mirrored quat are
-    exactly the mirrored satellites; their z/color is unchanged)."""
+    exactly the mirrored satellites; their z/color is unchanged).
+
+    Yields, per demo and in order, {"name": "demo_<d>", "datasets":
+    {path under the demo's group: array}, "attrs": {...}}: the arrays
+    write_demo_fixture stores, in the order it stores them, images as raw
+    (T, H, W, 3) uint8 frames. Plain numpy: a host without h5py serves
+    them from memory (MemoryDemoStore)."""
     rs = np.random.RandomState(seed)
     rs_outlier = np.random.RandomState(seed + 90210)  # own stream: a clean
     # same-seed twin keeps bit-identical images/proprio (see param doc)
+    for d in range(n_demos):
+        name = f"demo_{d}"      # (d is reused for the satellites below)
+        datasets: Dict[str, np.ndarray] = {}
+        # smooth random-walk pose
+        pos = np.empty((steps, 3), np.float32)
+        pos[0] = rs.uniform(0.25, 0.75, 3)
+        for t in range(1, steps):
+            pos[t] = np.clip(pos[t - 1] + rs.randn(3) * 0.03, 0.05, 0.95)
+        quat = rs.randn(steps, 4).astype(np.float32)
+        quat[0] = [1, 0, 0, 0]
+        for t in range(1, steps):
+            quat[t] = quat[t - 1] + rs.randn(4) * 0.1
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+
+        # velocity-extrapolated label (see param doc): `pos` is the
+        # RENDERED marker walk m; the label adds alpha * velocity on
+        # the IMAGE-PLANE coordinates (x, y) only -- z is rendered as
+        # a radius quantized to whole pixels (~0.17 resolution vs the
+        # 0.03 walk step), so z-velocity would be unobservable and
+        # merely add identical irreducible error to every model,
+        # masking the single-frame vs temporal comparison the fixture
+        # exists to make
+        label_pos = pos
+        if velocity_alpha > 0:
+            prev = np.vstack([pos[0:1], pos[:-1]])
+            label_pos = pos.copy()
+            label_pos[:, :2] += velocity_alpha * (pos - prev)[:, :2]
+
+        obj = np.zeros((steps, 14), np.float32)
+        obj[:, :3] = label_pos
+        obj[:, 3:7] = quat
+        obj[:, 7:10] = rs.randn(steps, 3) * 0.1   # filler (gripper-to-obj)
+        if label_outlier_frac > 0:
+            bad = rs_outlier.rand(steps) < label_outlier_frac
+            obj[bad, :3] = rs_outlier.uniform(
+                0.0, 1.0, (int(bad.sum()), 3)).astype(np.float32)
+
+        # smooth random walk, independent of the target pose
+        proprio = np.empty((steps, proprio_dim), np.float32)
+        proprio[0] = rs.randn(proprio_dim) * 0.3
+        for t in range(1, steps):
+            proprio[t] = proprio[t - 1] + rs.randn(proprio_dim) * 0.05
+        if leak_pose_into_proprio:
+            proprio[:, :3] = label_pos
+            proprio[:, 3:7] = quat
+        elif proprio_pose_noise > 0:
+            sig = proprio_pose_noise
+            proprio[:, :3] = label_pos + rs.randn(steps, 3) * sig
+            qn = quat + rs.randn(steps, 4) * sig
+            proprio[:, 3:7] = qn / np.linalg.norm(qn, axis=-1,
+                                                  keepdims=True)
+
+        # rotation matrices for the orientation satellites
+        rots = _quat_to_mat(quat)           # (steps, 3, 3)
+
+        for ci, cam in enumerate(cameras):
+            imgs = rs.randint(0, 40, (steps, image_hw, image_hw, 3),
+                              dtype=np.uint8)  # dark noise background
+            for t in range(steps):
+                if camera_occlusion > 0:
+                    # even cameras see the left region, odd the right;
+                    # the 2*delta overlap keeps a shared sliver
+                    visible = (pos[t, 0] < 0.5 + camera_occlusion
+                               if ci % 2 == 0
+                               else pos[t, 0] > 0.5 - camera_occlusion)
+                    if not visible:
+                        continue   # background noise only this frame
+                cy = int(pos[t, 1] * (image_hw - 1))
+                cx = int(pos[t, 0] * (image_hw - 1))
+                r = max(2, int(2 + pos[t, 2] * 6))
+                y0, y1 = max(0, cy - r), min(image_hw, cy + r)
+                x0, x1 = max(0, cx - r), min(image_hw, cx + r)
+                color = (np.array([1, 0.2, 0.2]) * 255 * quat[t, 0] ** 2
+                         + np.array([0.2, 0.2, 1]) * 255
+                         * (1 - quat[t, 0] ** 2))
+                imgs[t, y0:y1, x0:x1] = color.astype(np.uint8)
+                # Orientation satellites: dots at pos + 0.15*(R e_i) for
+                # e_1=(0,1,0), e_2=(0,0,1); the dot's green channel
+                # encodes (R e_i)_z. Together they pin down R (the x
+                # column is e_1' x e_2'), making ROTATION learnable from
+                # pixels. Mirror-consistency (hflip_pose_mirror, axis=0,
+                # center=0.5): reflection M=diag(-1,1,1) maps R to MRM,
+                # so R'e_i = M(R e_i) for e_i with zero x-component --
+                # exactly the satellite position mirrored, with its
+                # z-component (the color) unchanged.
+                for si, e in enumerate(((0.0, 1.0, 0.0),
+                                        (0.0, 0.0, 1.0))):
+                    d = rots[t] @ np.asarray(e)
+                    sy = int(np.clip(pos[t, 1] + 0.15 * d[1], 0, 1)
+                             * (image_hw - 1))
+                    sx = int(np.clip(pos[t, 0] + 0.15 * d[0], 0, 1)
+                             * (image_hw - 1))
+                    sy0, sy1 = max(0, sy - 2), min(image_hw, sy + 2)
+                    sx0, sx1 = max(0, sx - 2), min(image_hw, sx + 2)
+                    ch = np.zeros(3)
+                    ch[0 if si == 0 else 2] = 255   # satellite identity
+                    ch[1] = (d[2] + 1) * 127.5      # z-component as green
+                    imgs[t, sy0:sy1, sx0:sx1] = ch.astype(np.uint8)
+            datasets[f"obs/{cam}_image"] = imgs
+        if proprio_scale is not None:
+            # ill-conditioned raw units (radians next to millimeters
+            # next to raw encoder counts): per-dim multiplier on the
+            # STORED vector only; labels and correlation structure are
+            # untouched (the scaling is invertible). The
+            # model.proprio_normalize artifact rows train on this.
+            proprio = proprio * np.asarray(proprio_scale,
+                                           np.float32).reshape(1, -1)
+        datasets["obs/robot0_proprio-state"] = proprio
+        datasets["obs/object"] = obj
+        datasets["actions"] = rs.randn(steps, 7).astype(np.float32)
+        yield {"name": name, "datasets": datasets,
+               "attrs": {"num_samples": steps}}
+
+
+def write_demo_fixture(
+    path: str,
+    n_demos: int = 3,
+    steps: int = 20,
+    cameras: Sequence[str] = ("agentview", "robot0_eye_in_hand"),
+    image_hw: int = 84,
+    proprio_dim: int = 32,
+    seed: int = 0,
+    leak_pose_into_proprio: bool = False,
+    proprio_pose_noise: float = 0.0,
+    encoding: str = "raw",   # "raw" | "jpeg" | "png" per-frame image storage
+    camera_occlusion: float = 0.0,
+    velocity_alpha: float = 0.0,
+    proprio_scale=None,
+    # robomimic filter keys: {"name": [demo indices]} written as
+    # mask/<name> datasets of demo-name bytes (data.filter_key reads them)
+    filter_keys=None,
+    label_outlier_frac: float = 0.0,
+) -> str:
+    """Write the demos of demo_fixture_arrays (same arguments, documented
+    there) to a robomimic-layout HDF5 file at ``path`` and return it;
+    ``encoding`` "jpeg" or "png" stores each frame as encoded bytes in a
+    (T,) vlen-uint8 dataset."""
+    if encoding not in ("raw", "jpeg", "png"):
+        raise ValueError(f"encoding must be raw/jpeg/png, got {encoding!r}")
+    image_keys = {f"obs/{cam}_image" for cam in cameras}
     with _h5py().File(path, "w") as f:
         data = f.create_group("data")
         data.attrs["env"] = "Lift_fixture"
         data.attrs["repository_version"] = "rppe_tpu_fixture_v2"
-        for d in range(n_demos):
-            g = data.create_group(f"demo_{d}")
-            # smooth random-walk pose
-            pos = np.empty((steps, 3), np.float32)
-            pos[0] = rs.uniform(0.25, 0.75, 3)
-            for t in range(1, steps):
-                pos[t] = np.clip(pos[t - 1] + rs.randn(3) * 0.03, 0.05, 0.95)
-            quat = rs.randn(steps, 4).astype(np.float32)
-            quat[0] = [1, 0, 0, 0]
-            for t in range(1, steps):
-                quat[t] = quat[t - 1] + rs.randn(4) * 0.1
-            quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
-
-            # velocity-extrapolated label (see param doc): `pos` is the
-            # RENDERED marker walk m; the label adds alpha * velocity on
-            # the IMAGE-PLANE coordinates (x, y) only -- z is rendered as
-            # a radius quantized to whole pixels (~0.17 resolution vs the
-            # 0.03 walk step), so z-velocity would be unobservable and
-            # merely add identical irreducible error to every model,
-            # masking the single-frame vs temporal comparison the fixture
-            # exists to make
-            label_pos = pos
-            if velocity_alpha > 0:
-                prev = np.vstack([pos[0:1], pos[:-1]])
-                label_pos = pos.copy()
-                label_pos[:, :2] += velocity_alpha * (pos - prev)[:, :2]
-
-            obj = np.zeros((steps, 14), np.float32)
-            obj[:, :3] = label_pos
-            obj[:, 3:7] = quat
-            obj[:, 7:10] = rs.randn(steps, 3) * 0.1   # filler (gripper-to-obj)
-            if label_outlier_frac > 0:
-                bad = rs_outlier.rand(steps) < label_outlier_frac
-                obj[bad, :3] = rs_outlier.uniform(
-                    0.0, 1.0, (int(bad.sum()), 3)).astype(np.float32)
-
-            # smooth random walk, independent of the target pose
-            proprio = np.empty((steps, proprio_dim), np.float32)
-            proprio[0] = rs.randn(proprio_dim) * 0.3
-            for t in range(1, steps):
-                proprio[t] = proprio[t - 1] + rs.randn(proprio_dim) * 0.05
-            if leak_pose_into_proprio:
-                proprio[:, :3] = label_pos
-                proprio[:, 3:7] = quat
-            elif proprio_pose_noise > 0:
-                sig = proprio_pose_noise
-                proprio[:, :3] = label_pos + rs.randn(steps, 3) * sig
-                qn = quat + rs.randn(steps, 4) * sig
-                proprio[:, 3:7] = qn / np.linalg.norm(qn, axis=-1,
-                                                      keepdims=True)
-
-            # rotation matrices for the orientation satellites
-            rots = _quat_to_mat(quat)           # (steps, 3, 3)
-
+        for demo in demo_fixture_arrays(
+                n_demos, steps, cameras, image_hw, proprio_dim, seed,
+                leak_pose_into_proprio, proprio_pose_noise,
+                camera_occlusion, velocity_alpha, proprio_scale,
+                label_outlier_frac):
+            g = data.create_group(demo["name"])
             obs = g.create_group("obs")
-            for ci, cam in enumerate(cameras):
-                imgs = rs.randint(0, 40, (steps, image_hw, image_hw, 3),
-                                  dtype=np.uint8)  # dark noise background
-                for t in range(steps):
-                    if camera_occlusion > 0:
-                        # even cameras see the left region, odd the right;
-                        # the 2*delta overlap keeps a shared sliver
-                        visible = (pos[t, 0] < 0.5 + camera_occlusion
-                                   if ci % 2 == 0
-                                   else pos[t, 0] > 0.5 - camera_occlusion)
-                        if not visible:
-                            continue   # background noise only this frame
-                    cy = int(pos[t, 1] * (image_hw - 1))
-                    cx = int(pos[t, 0] * (image_hw - 1))
-                    r = max(2, int(2 + pos[t, 2] * 6))
-                    y0, y1 = max(0, cy - r), min(image_hw, cy + r)
-                    x0, x1 = max(0, cx - r), min(image_hw, cx + r)
-                    color = (np.array([1, 0.2, 0.2]) * 255 * quat[t, 0] ** 2
-                             + np.array([0.2, 0.2, 1]) * 255
-                             * (1 - quat[t, 0] ** 2))
-                    imgs[t, y0:y1, x0:x1] = color.astype(np.uint8)
-                    # Orientation satellites: dots at pos + 0.15*(R e_i) for
-                    # e_1=(0,1,0), e_2=(0,0,1); the dot's green channel
-                    # encodes (R e_i)_z. Together they pin down R (the x
-                    # column is e_1' x e_2'), making ROTATION learnable from
-                    # pixels. Mirror-consistency (hflip_pose_mirror, axis=0,
-                    # center=0.5): reflection M=diag(-1,1,1) maps R to MRM,
-                    # so R'e_i = M(R e_i) for e_i with zero x-component --
-                    # exactly the satellite position mirrored, with its
-                    # z-component (the color) unchanged.
-                    for si, e in enumerate(((0.0, 1.0, 0.0),
-                                            (0.0, 0.0, 1.0))):
-                        d = rots[t] @ np.asarray(e)
-                        sy = int(np.clip(pos[t, 1] + 0.15 * d[1], 0, 1)
-                                 * (image_hw - 1))
-                        sx = int(np.clip(pos[t, 0] + 0.15 * d[0], 0, 1)
-                                 * (image_hw - 1))
-                        sy0, sy1 = max(0, sy - 2), min(image_hw, sy + 2)
-                        sx0, sx1 = max(0, sx - 2), min(image_hw, sx + 2)
-                        ch = np.zeros(3)
-                        ch[0 if si == 0 else 2] = 255   # satellite identity
-                        ch[1] = (d[2] + 1) * 127.5      # z-component as green
-                        imgs[t, sy0:sy1, sx0:sx1] = ch.astype(np.uint8)
-                if encoding == "raw":
-                    obs.create_dataset(f"{cam}_image", data=imgs)
-                elif encoding in ("jpeg", "png"):
+            for key, arr in demo["datasets"].items():
+                group, name = ((obs, key[len("obs/"):])
+                               if key.startswith("obs/") else (g, key))
+                if key in image_keys and encoding != "raw":
                     # robomimic-in-the-wild layout: per-frame encoded bytes
                     # in a (T,) vlen-uint8 dataset (VERDICT r1 missing-3)
                     ext = ".jpg" if encoding == "jpeg" else ".png"
-                    ds = obs.create_dataset(
-                        f"{cam}_image", (steps,),
+                    ds = group.create_dataset(
+                        name, (len(arr),),
                         dtype=_h5py().vlen_dtype(np.uint8))
-                    for t in range(steps):
-                        ds[t] = aug.encode_image(imgs[t], ext)
+                    for t in range(len(arr)):
+                        ds[t] = aug.encode_image(arr[t], ext)
                 else:
-                    raise ValueError(
-                        f"encoding must be raw/jpeg/png, got {encoding!r}")
-            if proprio_scale is not None:
-                # ill-conditioned raw units (radians next to millimeters
-                # next to raw encoder counts): per-dim multiplier on the
-                # STORED vector only; labels and correlation structure are
-                # untouched (the scaling is invertible). The
-                # model.proprio_normalize artifact rows train on this.
-                proprio = proprio * np.asarray(proprio_scale,
-                                               np.float32).reshape(1, -1)
-            obs.create_dataset("robot0_proprio-state", data=proprio)
-            obs.create_dataset("object", data=obj)
-            g.create_dataset("actions", data=rs.randn(steps, 7).astype(np.float32))
-            g.attrs["num_samples"] = steps
+                    group.create_dataset(name, data=arr)
+            for k, v in demo["attrs"].items():
+                g.attrs[k] = v
         if filter_keys:
             mask = f.create_group("mask")
             for name, idxs in filter_keys.items():
                 mask.create_dataset(name, data=np.array(
                     [f"demo_{i}".encode() for i in idxs]))
     return path
+
+
+# ---------------------------------------------------------------------------
+# In-memory stand-in for a fixture file (a host without h5py)
+# ---------------------------------------------------------------------------
+
+
+class _MemoryFile(dict):
+    """The groups of one fixture file, as HDF5DemoStore reads them:
+    {"data": {demo name: {path under the demo's group: array}}}."""
+
+    def __init__(self, demos: Sequence[Dict]):
+        super().__init__(data={d["name"]: d["datasets"] for d in demos})
+
+    def close(self) -> None:
+        pass
+
+
+class MemoryDemoStore(HDF5DemoStore):
+    """HDF5DemoStore over fixture demos held in memory: the stand-in for
+    a write_demo_fixture file on a host without h5py. ``fixtures`` maps a
+    name to the demos of demo_fixture_arrays; ``path`` names one or more
+    of them (a comma list), as data.path names files. Every read goes
+    through HDF5DemoStore's own code (the split, temporal windows, host
+    augmentation, get_batch, proprio_stats and the device-cache
+    interface); the demos are the file's, bit for bit. Raw frames only
+    (no encoded images, no filter keys)."""
+
+    def __init__(self, path: str, *, fixtures: Mapping[str, Sequence[Dict]],
+                 **kwargs):
+        self._fixtures = fixtures
+        super().__init__(path, **kwargs)
+
+    def _open(self, fi: int) -> _MemoryFile:
+        name = self.paths[fi]
+        if name not in self._fixtures:
+            raise KeyError(f"no in-memory fixture {name!r}; have "
+                           f"{sorted(self._fixtures)}")
+        return _MemoryFile(self._fixtures[name])
+
+    @staticmethod
+    def _is_encoded(ds) -> bool:
+        return False
+
+    @staticmethod
+    def _read_into(ds, out: np.ndarray) -> None:
+        out[...] = ds

@@ -27,6 +27,7 @@ process slice. The sharded device cache is not ported.
 from __future__ import annotations
 
 import collections
+import functools
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Optional, Union
 
@@ -39,13 +40,18 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.data.synthetic import (
 )
 
 
-def build_dataset(cfg: Config, split: str = "all"):
+def build_dataset(cfg: Config, split: str = "all",
+                  fixtures: Optional[Dict[str, Any]] = None):
     """Construct the dataset named by cfg.data.source.
 
     split: "all" | "train" | "val" -- "train"/"val" are only distinct when
     cfg.data.val_fraction > 0 (hdf5 splits by demo; synthetic by index) or
     cfg.data.val_path is set (hdf5: val = ALL of the separate file(s),
-    train = ALL of data.path)."""
+    train = ALL of data.path).
+
+    fixtures: {name: demos of hdf5_store.demo_fixture_arrays}; given, the
+    hdf5 source's data.path and data.val_path name entries of it, served
+    from memory by hdf5_store.MemoryDemoStore instead of files."""
     d, m = cfg.data, cfg.model
     if d.source == "synthetic":
         return SyntheticProprioDataset(
@@ -72,7 +78,11 @@ def build_dataset(cfg: Config, split: str = "all"):
         # trains from memory never loads it
         from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (
             HDF5DemoStore,
+            MemoryDemoStore,
         )
+
+        make_store = (HDF5DemoStore if fixtures is None else
+                      functools.partial(MemoryDemoStore, fixtures=fixtures))
 
         # data.val_path: the val split is a SEPARATE held-out file
         # collection (whole file(s), no fraction split on either side);
@@ -87,7 +97,7 @@ def build_dataset(cfg: Config, split: str = "all"):
                 max_demos = 0
                 filter_key = ""
             split, val_fraction = "all", 0.0
-        store = HDF5DemoStore(
+        store = make_store(
             path,
             split=split,
             val_fraction=val_fraction,

@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as tdist
 
 from rgb_proprioceptive_pose_estimator_tpu.config import preset as jax_preset
 from rgb_proprioceptive_pose_estimator_tpu.data.hdf5_store import (
@@ -575,8 +576,11 @@ def test_launch_leaves_no_process_behind(raises):
     resource tracker that spawning them starts (Python 3.12.3 stops it
     only at the launching process's exit, after that process ends)."""
     before = set(dist.child_processes())
-    # barrier takes no arguments, so run_each's call of it raises
-    calls = [(dist.barrier, None, ())] if raises else []
+    # both ranks first finish a collective (all_gather_object of their
+    # devices), so each has joined the group before either raises; then
+    # barrier, which takes no arguments, raises a TypeError on each rank
+    calls = [(tdist.all_gather_object, [None, None], ()),
+             (dist.barrier, None, ())] if raises else []
     if raises:
         with pytest.raises(Exception, match="TypeError"):
             dist.launch(dist.run_each, calls, ["cpu", "cpu"], "gloo")
