@@ -139,16 +139,28 @@ Phases, one or more lines each, and the last line is the result:
    held-out demos: pos MAE at most 0.5 and rot MAE at most 0.8 of the
    fixture's chance level (the train split's mean pose scored on the
    held-out demos); K2 forward and backward launched;
-21. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
+21. the flagship battery: the composition row of
+   scripts/torch_flagship_battery.py (pr5 as the battery sets it: two
+   cameras at 128 px, 3 frames through the LSTM, proprio 8, camera
+   dropout 0.15, EMA 0.999 with 30 recalibration batches, the sharded
+   device cache, device augmentation, bf16, batch 128, lookahead 2) for
+   FLAG_STEPS steps and its two dead-camera evals, from an .npz of
+   stand-in demos under the rendered file's keys and shapes (FLAG_DEMOS x
+   FLAG_DEMO_STEPS, drawn without MuJoCo), read through the script's
+   --frames code: pos and rot MAE at most FLAG_POS_SHARE and
+   FLAG_ROT_SHARE of the stand-in's chance level, dead-camera MAE finite,
+   K2 forward and backward launched, K1 only inside evaluation, no K3;
+22. the script's seconds, a JSON line of per-kernel numbers (pr3's f32
    sites; launches summed over every main path, the ranks' included),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 
-Two parts of the port are held on the CPU alone (tests/), not here:
+Three parts of the port are held on the CPU alone (tests/), not here:
 scripts/torch_from_orbax.py, which converts the JAX package's orbax
-checkpoints and needs JAX, which the card's host lacks; and the examples
+checkpoints and needs JAX, which the card's host lacks; the examples
 of examples/torch/, which write HDF5 fixtures, and the card's host has no
-h5py. What they run on the card (pr2 training, serving, the export) is
+h5py; and the render half of the flagship scripts and of the accuracy
+battery's mjrender row (--render-only), which needs MuJoCo and h5py. What they run on the card (pr2 training, serving, the export) is
 driven above by phases 7, 4 and 19.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -363,6 +375,18 @@ INT8_POS_ATOL, INT8_QUAT_ATOL, EXPORT_ITERS = 0.05, 0.01, 30
 # chance level (the train split's mean pose)
 ACC_STEPS = 1500
 ACC_POS_SHARE, ACC_ROT_SHARE = 0.5, 0.8
+# the flagship battery's composition row (scripts/torch_flagship_battery.py)
+# at the flagship's widths on stand-in arrays (the card's host cannot
+# render), cut to FLAG_DEMOS demos x FLAG_DEMO_STEPS steps and FLAG_STEPS
+# train steps: held-out pos and rot MAE at most FLAG_POS_SHARE and
+# FLAG_ROT_SHARE of the stand-in's chance level, both dead-camera evals
+# finite, the phase within FLAG_SECONDS. The row serves its EMA (decay
+# 0.999), which still holds 0.999^steps of the initial weights: at 1000
+# steps (0.37) the served model scored worse than chance, so the cut
+# keeps 2000 (0.14)
+FLAG_DEMOS, FLAG_DEMO_STEPS, FLAG_STEPS = 80, 50, 2000
+FLAG_POS_SHARE, FLAG_ROT_SHARE, FLAG_SECONDS = 0.75, 0.85, 260.0
+FLAG_ROW = "pr5-full (composition)"
 
 
 class SmokeFailure(RuntimeError):
@@ -4076,6 +4100,15 @@ def phase_sweep(rppt, dev, smi, ckpt_root):
           "sweep: runs not recorded, or the second call trained again")
 
 
+def _script(name):
+    """scripts/<name>.py of the checkout, loaded as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_accuracy(fused, dev, smi, ckpt_root, steps=ACC_STEPS):
     """The accuracy battery's runner on the card: the image-only row of
     scripts/torch_accuracy_artifact.py at its default fixture (40 demos x
@@ -4083,12 +4116,7 @@ def phase_accuracy(fused, dev, smi, ckpt_root, steps=ACC_STEPS):
     device augmentation for ``steps`` train steps, its best checkpoint
     scored on the 8 held-out demos; held to the fixture's chance level,
     the held-out MAE of the train split's mean pose."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_accuracy_artifact",
-        Path(__file__).resolve().parent / "scripts"
-        / "torch_accuracy_artifact.py")
-    acc = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(acc)
+    acc = _script("torch_accuracy_artifact")
     args = acc.parse_args(["--steps", str(steps), "--device", str(dev),
                            "--out", f"{ckpt_root}/accuracy"])
     t = time.perf_counter()
@@ -4118,6 +4146,115 @@ def phase_accuracy(fused, dev, smi, ckpt_root, steps=ACC_STEPS):
           and counts["scale_bias_relu_backward"] > 0,
           f"accuracy: K2 forward or backward not launched: {counts}")
     del out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_flagship(fused, dev, smi, ckpt_root, steps=FLAG_STEPS,
+                   demos=FLAG_DEMOS, demo_steps=FLAG_DEMO_STEPS):
+    """The flagship battery's runner on the card: the composition row of
+    scripts/torch_flagship_battery.py (pr5: two cameras at 128 px, 3
+    frames through the LSTM, proprio 8, camera dropout 0.15, EMA 0.999
+    with 30 recalibration batches, the sharded device cache, device
+    augmentation, bf16, batch 128, lookahead 2) and its two dead-camera
+    evals, through the code that reads --frames: stand-in demos of the
+    rendered file's keys and shapes (the card's host cannot render),
+    saved to and loaded from an .npz. Held to the stand-in's chance
+    level; K1 runs only in evaluation (uint8 cache frames), never in a
+    train step or recalibration (their frames come from the device
+    augmentation)."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (
+        save_demos_npz,
+    )
+    from rgb_proprioceptive_pose_estimator_tpu_torch.engine import loop
+
+    flag = _script("torch_flagship_battery")
+    acc = flag.accuracy_script()
+    out_dir = f"{ckpt_root}/flagship"
+    os.makedirs(out_dir)
+    t = time.perf_counter()
+    npz = save_demos_npz(f"{out_dir}/standin.npz",
+                         *flag.standin_demos(demos, demo_steps, 128, seed=11),
+                         compress=False)
+    npz_mb = os.path.getsize(npz) / 2 ** 20
+    args = flag.parse_args(["--frames", npz, "--demos", str(demos),
+                            "--demo-steps", str(demo_steps), "--steps",
+                            str(steps), "--device", str(dev), "--out",
+                            out_dir])
+    fixtures = flag.fixtures_of(args, *flag.load_frames(args))
+    data_s = time.perf_counter() - t
+    # K1 launches inside evaluation, counted apart
+    eval_k1 = [0]
+    eval_step = loop.eval_step
+
+    def counted_eval_step(*a, **kw):
+        before = fused.normalize_u8.launches
+        out = eval_step(*a, **kw)
+        eval_k1[0] += fused.normalize_u8.launches - before
+        return out
+
+    loop.eval_step = counted_eval_step
+    _zero_counts(fused)
+    try:
+        out = flag.run_row(args, FLAG_ROW, fixtures, dev)
+    finally:
+        loop.eval_step = eval_step
+    counts = _counts(fused)
+    seconds = time.perf_counter() - t
+    res = out["results"]
+    row = res[FLAG_ROW]
+    chance = acc.chance_level(out["cfg"], out["fixtures"])
+    cfg = out["cfg"]
+    print(f"flagship {FLAG_ROW}: stand-in arrays {demos} demos x "
+          f"{demo_steps} steps, cameras {list(cfg.model.cameras)} at "
+          f"{cfg.model.image_size} px, {cfg.model.temporal_frames} frames "
+          f"{cfg.model.temporal_mode}, proprio {cfg.model.proprio_dim}, "
+          f"lookahead {args.lookahead}, {cfg.model.dtype}, cache "
+          f"{cfg.data.cache_layout}, {steps} train steps at batch "
+          f"{cfg.data.batch_size}: held-out {json.dumps(res)}; chance "
+          f"{chance['pos_mae_cm']:.2f} cm {chance['rot_mae_deg']:.2f} deg "
+          f"(shares {row['pos_mae_cm'] / chance['pos_mae_cm']:.3f} pos, "
+          f"{row['rot_mae_deg'] / chance['rot_mae_deg']:.3f} rot; limits "
+          f"{FLAG_POS_SHARE}, {FLAG_ROT_SHARE}); {seconds:.1f} s in all "
+          f"(limit {FLAG_SECONDS}), {data_s:.1f} s of it the stand-in and "
+          f"its {npz_mb:.1f} MiB .npz, {out['seconds']:.1f} s training and "
+          f"scoring; launches {json.dumps(counts)}, K1 in evaluation "
+          f"{eval_k1[0]} ({smi})", flush=True)
+    # the run's log: the EMA's held-out MAE at each eval, the train loss
+    # and samples/s
+    with open(f"{cfg.train.ckpt_dir}/metrics.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    print("flagship log: " + "; ".join(
+        f"step {r['step']} " + (
+            f"eval {r['eval/pos_mae_cm']:.2f} cm {r['eval/rot_mae_deg']:.2f} "
+            "deg" if "eval/pos_mae_cm" in r else
+            f"loss {r['train/loss']:.4f}, "
+            f"{r['train/images_per_sec']:.0f} samples/s")
+        for r in log if "eval/pos_mae_cm" in r
+        or "train/images_per_sec" in r), flush=True)
+    dead = [f"{FLAG_ROW} [dead {c}]" for c in cfg.model.cameras]
+    check(sorted(res) == sorted([FLAG_ROW] + dead),
+          f"flagship: results {sorted(res)}")
+    check(all(math.isfinite(res[k][m]) for k in res
+              for m in ("pos_mae_cm", "rot_mae_deg")),
+          f"flagship: a MAE is not finite: {res}")
+    check(row["pos_mae_cm"] <= FLAG_POS_SHARE * chance["pos_mae_cm"],
+          f"flagship: pos MAE {row['pos_mae_cm']} cm above "
+          f"{FLAG_POS_SHARE} x chance {chance['pos_mae_cm']:.2f}")
+    check(row["rot_mae_deg"] <= FLAG_ROT_SHARE * chance["rot_mae_deg"],
+          f"flagship: rot MAE {row['rot_mae_deg']} deg above "
+          f"{FLAG_ROT_SHARE} x chance {chance['rot_mae_deg']:.2f}")
+    check(counts["scale_bias_relu"] > 0
+          and counts["scale_bias_relu_backward"] > 0,
+          f"flagship: K2 forward or backward not launched: {counts}")
+    check(counts["normalize_u8"] == eval_k1[0],
+          f"flagship: K1 launched outside evaluation: {counts} "
+          f"({eval_k1[0]} in evaluation)")
+    check(counts["channel_stats"] == 0,
+          f"flagship: K3 launched on the reduce route: {counts}")
+    check(seconds <= FLAG_SECONDS,
+          f"flagship: {seconds:.1f} s above {FLAG_SECONDS}")
+    del out, fixtures
     torch.cuda.empty_cache()
     return counts
 
@@ -4387,6 +4524,10 @@ def main() -> int:
         # the accuracy battery's image-only row, scored on held-out demos
         paths["accuracy image-only"] = phase_accuracy(fused, dev, smi,
                                                       ckpt_root)
+        # the flagship battery's composition row from an .npz of stand-in
+        # demos at the flagship's widths
+        paths["flagship pr5-full"] = phase_flagship(fused, dev, smi,
+                                                    ckpt_root)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in KERNEL_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)

@@ -24,6 +24,7 @@ granularity across the whole collection.
 from __future__ import annotations
 
 import glob as _glob
+import json
 import os
 import re
 import threading
@@ -1013,3 +1014,95 @@ class MemoryDemoStore(HDF5DemoStore):
     @staticmethod
     def _read_into(ds, out: np.ndarray) -> None:
         out[...] = ds
+
+
+# ---------------------------------------------------------------------------
+# Demo files as arrays, and their numpy-only carrier
+# ---------------------------------------------------------------------------
+
+
+def _attr_value(v):
+    """An HDF5 attribute as a plain Python value (JSON-serializable)."""
+    if isinstance(v, bytes):
+        return v.decode()
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def demo_file_arrays(path: str) -> Tuple[List[Dict], Dict]:
+    """The demos of a robomimic-layout HDF5 file, e.g. one written by
+    playback.render_playback_dataset, as the per-demo dicts that
+    MemoryDemoStore reads (demo_fixture_arrays' form: {"name",
+    "datasets": {path under the demo's group: array}, "attrs"}), in
+    natural demo order, and the data group's attributes. Raw image
+    datasets only: encoded (vlen) frames raise ValueError."""
+    h5py = _h5py()
+    demos: List[Dict] = []
+    with h5py.File(path, "r") as f:
+        data = f["data"]
+        attrs = {k: _attr_value(v) for k, v in data.attrs.items()}
+        for name in sorted(data.keys(), key=_natural_key):
+            group = data[name]
+            datasets: Dict[str, np.ndarray] = {}
+
+            def take(key, obj):
+                if not isinstance(obj, h5py.Dataset):
+                    return
+                if h5py.check_vlen_dtype(obj.dtype) is not None:
+                    raise ValueError(
+                        f"{path}: {name}/{key} holds encoded frames; only "
+                        "raw datasets are carried as arrays")
+                datasets[key] = obj[()]
+
+            group.visititems(take)
+            demos.append({"name": name, "datasets": datasets,
+                          "attrs": {k: _attr_value(v)
+                                    for k, v in group.attrs.items()}})
+    return demos, attrs
+
+
+_NPZ_META = "__meta__"
+
+
+def save_demos_npz(path: str, demos: Sequence[Dict],
+                   attrs: Optional[Mapping] = None,
+                   compress: bool = True) -> str:
+    """Write ``demos`` (demo_file_arrays' dicts) and the data group's
+    ``attrs`` to one ``.npz`` at ``path`` (atomically: a file under that
+    name is complete) and return ``path``. Each dataset is the entry
+    "<demo>/<key>"; the attributes travel as JSON in "__meta__"."""
+    arrays = {f"{d['name']}/{k}": np.asarray(v)
+              for d in demos for k, v in d["datasets"].items()}
+    meta = {"attrs": dict(attrs or {}),
+            "demos": [[d["name"], dict(d["attrs"])] for d in demos]}
+    arrays[_NPZ_META] = np.array(json.dumps(meta))
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            (np.savez_compressed if compress else np.savez)(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def load_demos_npz(path: str) -> Tuple[List[Dict], Dict]:
+    """The demos and data attributes save_demos_npz wrote, read with
+    numpy alone (no h5py): what MemoryDemoStore and
+    build_dataset(cfg, split, fixtures={name: demos}) take."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z[_NPZ_META]))
+        keys: Dict[str, List[str]] = {}
+        for entry in z.files:
+            if entry != _NPZ_META:
+                name, _, key = entry.partition("/")
+                keys.setdefault(name, []).append(key)
+        demos = [{"name": name,
+                  "datasets": {k: z[f"{name}/{k}"] for k in keys.get(name, [])},
+                  "attrs": dattrs}
+                 for name, dattrs in meta["demos"]]
+    return demos, meta["attrs"]

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -56,6 +56,19 @@ def _import_mujoco():
     import mujoco
 
     return mujoco
+
+
+def missing_render_modules() -> List[str]:
+    """The modules a render needs that this host lacks: ``mujoco`` for
+    the scene and ``h5py`` for the states and rendered files."""
+    missing = []
+    for name, load in (("mujoco", _import_mujoco),
+                       ("h5py", lambda: __import__("h5py"))):
+        try:
+            load()
+        except ImportError:
+            missing.append(name)
+    return missing
 
 
 def split_state(state: np.ndarray, nq: int, nv: int

@@ -12,10 +12,17 @@ held-out split with ``api.evaluate_on`` (and once more with each
 demos built in memory (``data/hdf5_store.demo_fixture_arrays``, bit for
 bit the file's) and read through the HDF5 store's own code
 (``MemoryDemoStore``), so the battery needs no ``h5py``. The ``mjrender``
-fixture is refused: it is rendered with MuJoCo.
+fixture is rendered with MuJoCo (``data/playback.py``) and travels as
+arrays in one ``.npz`` that numpy alone reads: ``--render-only`` writes it
+on a host with ``mujoco`` and ``h5py`` (``demos_mjrender.npz`` in
+``--out``), and ``--frames`` hands it to the row on the card. Without
+``--frames`` the row renders where it runs, which needs both modules.
 
     python3 scripts/torch_accuracy_artifact.py [--demos 40] [--steps 3000] \\
         [--out DIR] [--rows "image-only,dual-cam (occluded)"] [--seed 1]
+    python3 scripts/torch_accuracy_artifact.py --render-only --out DIR
+    python3 scripts/torch_accuracy_artifact.py --frames DIR/demos_mjrender.npz \\
+        --rows "image+qpos (mujoco-rendered)"
 
 ``results.json`` in ``--out`` accumulates the rows in the reference's
 format; ``runs.json`` beside it holds each row's wall-clock seconds, the
@@ -324,6 +331,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--note", default="",
                     help="recorded with each run in runs.json, e.g. what "
                          "else shared the card")
+    ap.add_argument("--render-only", action="store_true",
+                    help="render the mjrender fixture into --out as "
+                         "demos_mjrender.npz and stop (needs mujoco, h5py)")
+    ap.add_argument("--frames", default="",
+                    help="the mjrender fixture's .npz (--render-only's)")
     ap.add_argument("--collect", nargs="+", default=None, metavar="DIR",
                     help="merge these --out directories into --artifact")
     ap.add_argument("--artifact", default="",
@@ -331,20 +343,50 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def render_mjrender(args: argparse.Namespace) -> str:
+    """The mjrender fixture as the reference's fixture_path writes it
+    (write_states_fixture seed 7, agentview at --image-hw, each file made
+    only where it is missing), then as arrays: the path of
+    ``demos_mjrender.npz`` in ``--out``."""
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data import playback
+    from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (
+        demo_file_arrays,
+        save_demos_npz,
+    )
+
+    missing = playback.missing_render_modules()
+    if missing:
+        raise ValueError(
+            f"the mjrender fixture is rendered by MuJoCo and written with "
+            f"h5py, and this host lacks {' and '.join(missing)}: pass "
+            "--frames with the demos_mjrender.npz that --render-only "
+            "writes on a host with mujoco and h5py")
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "demos_mjrender.hdf5")
+    npz = os.path.join(args.out, "demos_mjrender.npz")
+    if not os.path.exists(path):
+        src = playback.write_states_fixture(
+            os.path.join(args.out, "states_mj.hdf5"),
+            n_demos=args.demos, steps=args.demo_steps, seed=7)
+        playback.render_playback_dataset(src, path, cameras=("agentview",),
+                                         image_hw=args.image_hw,
+                                         target_body="cube")
+    if not os.path.exists(npz):
+        save_demos_npz(npz, *demo_file_arrays(path))
+    return npz
+
+
 def fixture_demos(args: argparse.Namespace, name: str) -> List[Dict]:
     """The demos of fixture ``name`` at the battery's size, built in
-    memory exactly as the reference's fixture_path writes them."""
+    memory exactly as the reference's fixture_path writes them; the
+    mjrender fixture's from ``--frames``, or rendered here."""
     from rgb_proprioceptive_pose_estimator_tpu_torch.data.hdf5_store import (
         demo_fixture_arrays,
+        load_demos_npz,
     )
 
     if name == "mjrender":
-        raise ValueError(
-            "the mjrender fixture is rendered by MuJoCo (data/playback.py "
-            "render_playback_dataset) into an HDF5 file: it needs mujoco "
-            "and h5py, and this battery builds its fixtures in memory; run "
-            "that row with the JAX package's scripts/accuracy_artifact.py "
-            "on a host with mujoco")
+        return load_demos_npz(args.frames or render_mjrender(args))[0]
     kw = dict(FIXTURES[name])
     kw.setdefault("cameras", ("agentview",))
     kw.setdefault("seed", 7)
@@ -411,12 +453,14 @@ def _rounded(m: Dict[str, Any], args: argparse.Namespace,
             "steps": args.steps, "held_out_demos": held_out}
 
 
-def run_row(args: argparse.Namespace, name: str, cache: Dict[str, List],
-            device) -> Dict[str, Any]:
-    """Train row ``name`` on ``device`` and score its best checkpoint.
-    ``cache`` keeps the fixtures built so far (name -> demos). Returns
-    {"results": {key: entry in the reference's format}, "seconds",
-    "cfg", "fixtures"}."""
+def train_and_score(cfg, fixtures: Dict[str, List], eval_drop: Sequence,
+                    device) -> Dict[str, Any]:
+    """Train ``cfg`` on ``device`` from the in-memory ``fixtures`` (its
+    data.path and data.val_path name entries), then score its best
+    checkpoint over the whole held-out split, and once more with each
+    ``eval_drop`` entry's camera(s) dead (a tuple entry drops the set
+    jointly). Returns {"metrics": evaluate_on's, "dead": {"<cam>[+<cam>]":
+    metrics}, "seconds"}."""
     import torch
 
     from rgb_proprioceptive_pose_estimator_tpu_torch import api
@@ -430,8 +474,36 @@ def run_row(args: argparse.Namespace, name: str, cache: Dict[str, List],
         create_state,
     )
 
+    t0 = time.perf_counter()
+    train_store = build_dataset(cfg, "train", fixtures=fixtures)
+    val_store = build_dataset(cfg, "val", fixtures=fixtures)
+    state = create_state(cfg, device)
+    train_on(cfg, state, train_store, val_store)
+    del state
+    model, step = api.load_model(cfg, f"{cfg.train.ckpt_dir}/best",
+                                 device=device)
+    metrics = api.evaluate_on(cfg, model, val_store, step=step)
+    dead = {}
+    for dc in eval_drop:
+        dcs = tuple(dc) if isinstance(dc, (tuple, list)) else (dc,)
+        dead["+".join(dcs)] = api.evaluate_on(cfg, model, val_store,
+                                              step=step, drop_cameras=dcs)
+    seconds = time.perf_counter() - t0
+    del model, train_store, val_store
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"metrics": metrics, "dead": dead, "seconds": seconds}
+
+
+def run_row(args: argparse.Namespace, name: str, cache: Dict[str, List],
+            device) -> Dict[str, Any]:
+    """Train row ``name`` on ``device`` and score its best checkpoint.
+    ``cache`` keeps the fixtures built so far (name -> demos). Returns
+    {"results": {key: entry in the reference's format}, "seconds",
+    "cfg", "fixtures"}."""
     over = {**ROWS, **PORT_ROWS}[name]
-    used = [over.get("_fixture", "plain")] + (
+    row_fixture = over.get("_fixture", "plain")
+    used = [row_fixture] + (
         [over["_val_fixture"]] if "_val_fixture" in over else [])
     for f in used:
         if f not in cache:
@@ -442,33 +514,18 @@ def run_row(args: argparse.Namespace, name: str, cache: Dict[str, List],
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     cfg, eval_drop, val_fixture = row_config(
         args, name, {f: f for f in FIXTURES}, ckpt_dir)
-
-    t0 = time.perf_counter()
-    train_store = build_dataset(cfg, "train", fixtures=fixtures)
-    val_store = build_dataset(cfg, "val", fixtures=fixtures)
-    state = create_state(cfg, device)
-    train_on(cfg, state, train_store, val_store)
-    del state
-    # score the best checkpoint on the full held-out split
-    model, step = api.load_model(cfg, f"{ckpt_dir}/best", device=device)
-    held_out = args.demos if val_fixture else int(args.demos * 0.2)
-    results = {key: _rounded(api.evaluate_on(cfg, model, val_store,
-                                             step=step), args, held_out)}
+    out = train_and_score(cfg, fixtures, eval_drop, device)
+    # the held-out split: a separate val fixture whole, else 20% of the
+    # row's demos (the rendered fixture's count is its arrays')
+    n_demos = len(fixtures[row_fixture])
+    held_out = args.demos if val_fixture else int(n_demos * 0.2)
+    results = {key: _rounded(out["metrics"], args, held_out)}
     print(json.dumps({key: results[key]}), flush=True)
-    for dc in eval_drop:
-        # the best checkpoint with camera(s) DEAD; a tuple entry drops the
-        # whole set jointly
-        dcs = tuple(dc) if isinstance(dc, (tuple, list)) else (dc,)
-        r = api.evaluate_on(cfg, model, val_store, step=step,
-                            drop_cameras=dcs)
-        dkey = f"{key} [dead {'+'.join(dcs)}]"
-        results[dkey] = _rounded(r, args, int(args.demos * 0.2))
+    for cams, r in out["dead"].items():
+        dkey = f"{key} [dead {cams}]"
+        results[dkey] = _rounded(r, args, int(n_demos * 0.2))
         print(json.dumps({dkey: results[dkey]}), flush=True)
-    seconds = time.perf_counter() - t0
-    del model, train_store, val_store
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    return {"results": results, "seconds": seconds, "cfg": cfg,
+    return {"results": results, "seconds": out["seconds"], "cfg": cfg,
             "fixtures": fixtures}
 
 
@@ -495,7 +552,9 @@ def chance_level(cfg, fixtures: Dict[str, List]) -> Dict[str, float]:
 
     # labels only: no camera is read
     lcfg = cfg.override(**{"model.backbone": "none",
-                           "data.device_cache": False})
+                           "model.camera_dropout": 0.0,
+                           "data.device_cache": False,
+                           "data.cache_layout": "replicated"})
     pos, quat = sample_labels(build_dataset(lcfg, "train", fixtures=fixtures))
     vpos, vquat = sample_labels(build_dataset(lcfg, "val", fixtures=fixtures))
     q64 = quat.astype(np.float64)
@@ -664,6 +723,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.collect:
         out = collect(args.collect, args.artifact)
         print(json.dumps({k: out[k] for k in ("rows_in_band", "readings")}))
+        return out
+    if args.render_only:
+        out = {"frames": render_mjrender(args)}
+        print(json.dumps(out))
         return out
     return run(args)
 

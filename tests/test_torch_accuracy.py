@@ -14,7 +14,8 @@ route.
 - two rows end to end at pr3 (32 px, 5 demos, 6 train steps, batch 8):
   the in-memory route's results.json equals, exactly, the one the port's
   ``api.train`` + ``api.evaluate`` give on the HDF5 files;
-- the MuJoCo-rendered fixture is refused naming mujoco, and the script's
+- without mujoco and --frames the MuJoCo-rendered fixture is refused
+  naming both, and the script's
   card path loads none of JAX, the JAX package, h5py, optax, cv2,
   matplotlib or mujoco.
 
@@ -358,8 +359,12 @@ def test_seed_keys_the_row_and_collect_bands_it(tmp_path):
     assert out["readings"]["dual-cam beats single-cam (occluded)"] is None
 
 
-def test_mjrender_is_refused_naming_mujoco(tmp_path):
-    with pytest.raises(ValueError, match="mujoco"):
+def test_mjrender_is_refused_naming_mujoco(tmp_path, monkeypatch):
+    """Without mujoco and without --frames the rendered row is refused
+    naming both (with either, it renders or reads its arrays:
+    tests/test_torch_flagship.py)."""
+    monkeypatch.setitem(sys.modules, "mujoco", None)    # import fails
+    with pytest.raises(ValueError, match="mujoco.*--frames"):
         acc.main(E2E_ARGS + ["--out", str(tmp_path),
                              "--rows", "image+qpos (mujoco-rendered)"])
 
