@@ -1090,7 +1090,10 @@ def device_breakdown(run, iters):
         torch.cuda.synchronize()
     groups, other, attention = {}, {}, {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a record_function range (the port's spans record under a trace)
+        # is shown on the device too, over the kernels it holds
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:

@@ -469,12 +469,16 @@ class TrainConfig:
     compile_cache_dir: str = ""
     metrics_path: str = ""         # JSONL metrics file ("" = ckpt_dir/metrics.jsonl)
     tensorboard: bool = False
-    debug_nans: bool = False       # jax_debug_nans mode (SURVEY.md section 6.2)
-    # capture a jax.profiler trace window (SURVEY.md section 6.1); view with
-    # tensorboard-plugin-profile. "" = off.
+    # FloatingPointError, before the update, when the loss or a gradient
+    # of a train step holds a NaN (SURVEY.md section 6.2)
+    debug_nans: bool = False
+    # a torch.profiler window over training steps (SURVEY.md section 6.1):
+    # <profile_dir>/trace_rank<r>.json, a Chrome trace (chrome://tracing or
+    # Perfetto), and spans_rank<r>.json, the port's spans of those steps
+    # (utils/prof.py), whose means fit logs under trace/. "" = off.
     profile_dir: str = ""
-    profile_start: int = 10        # first profiled step
-    profile_steps: int = 5         # trace window length
+    profile_start: int = 10        # the window opens after this step
+    profile_steps: int = 5         # steps in the window
 
     def __post_init__(self):
         _check_enum("train.optimizer", self.optimizer,

@@ -22,6 +22,11 @@ so rank r's rows are rows ``r*B/world`` to ``(r+1)*B/world`` of the
 global batch, bit for bit. Across hosts (``dist.multihost``) the global
 ranks are process-major, so a host's ranks hold together the reference's
 process slice. The sharded device cache is not ported.
+
+Spans (``utils/prof``, recorded only while tracing): ``rppe.feed`` around
+``__next__`` (counter ``ready``: ``queue_depth()`` at entry), with
+``rppe.feed.wait`` (blocked on a worker's batch) and ``rppe.feed.h2d``
+(pinning and queueing the copy to the device).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.config import Config, DataConfi
 from rgb_proprioceptive_pose_estimator_tpu_torch.data.synthetic import (
     SyntheticProprioDataset,
 )
+from rgb_proprioceptive_pose_estimator_tpu_torch.utils import prof
 
 
 def build_dataset(cfg: Config, split: str = "all",
@@ -288,8 +294,10 @@ class HostPipeline:
     def _fill_device_q(self, limit: Optional[int] = None) -> None:
         self._schedule(limit)
         while len(self._device_q) < self._max_device and self._inflight:
-            np_batch = self._inflight.popleft().result()
-            self._device_q.append(_to_device(np_batch, self.device))
+            with prof.span("rppe.feed.wait"):
+                np_batch = self._inflight.popleft().result()
+            with prof.span("rppe.feed.h2d"):
+                self._device_q.append(_to_device(np_batch, self.device))
             self._schedule(limit)
 
     def queue_depth(self) -> int:
@@ -303,9 +311,12 @@ class HostPipeline:
 
     def __next__(self):
         """Infinite stream of device batches (training)."""
-        self._fill_device_q()
-        self._consumed += 1
-        return self._device_q.popleft()
+        with prof.span("rppe.feed") as sp:
+            if sp.active:
+                sp.count("ready", self.queue_depth())
+            self._fill_device_q()
+            self._consumed += 1
+            return self._device_q.popleft()
 
     def epoch(self, max_batches: int = 0, start: int = 0) -> Iterator:
         """One deterministic pass over the dataset (evaluation), optionally

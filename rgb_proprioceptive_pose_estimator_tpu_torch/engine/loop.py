@@ -19,7 +19,8 @@ final checkpoints serve, with BatchNorm statistics recalibrated for it
 ``train.grad_accum`` (``train.steps`` and the cadences count micro-steps,
 as in the reference); early stopping on the eval metric
 (``train.early_stop_patience``); ``train.debug_nans``; and a profiler
-trace window (``train.profile_dir``).
+trace window (``train.profile_dir``), whose spans' means per name are
+logged under ``trace/`` when it closes.
 
 With ``dist.num_devices`` resolving to N > 1 (``parallel/dist.py``: 0
 means every visible card), ``fit`` launches N processes, one per device,
@@ -548,7 +549,9 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                 m = train_step(state, next(train_pipe), tcfg, train_cache,
                                device_aug)
             step1 = step_i + spc
-            tracer.on_step(step1)
+            spans = tracer.on_step(step1)
+            if spans:
+                logger.log(step1, spans, prefix="trace/")
             if step_i == start_step and tcfg.log_every > 1:
                 # keep the first call (kernel builds, cuDNN plans) out of
                 # the first throughput window
@@ -628,7 +631,9 @@ def train_on(cfg: Config, state: TrainState, dataset, eval_ds
                 logger.log(step1, {"preempted_at": float(step1)},
                            prefix="train/")
                 break
-        tracer.close()
+        spans = tracer.close()
+        if spans:
+            logger.log(final_step, spans, prefix="trace/")
         # the final checkpoint serves BatchNorm statistics recalibrated for
         # its weights, which the state keeps from here (not on preemption:
         # that checkpoint is a resume point); nothing to save when a

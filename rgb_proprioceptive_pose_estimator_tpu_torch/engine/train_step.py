@@ -50,6 +50,11 @@ DistributedDataParallel wrapper: each rank's loss is the mean over its
 equal share of the global batch, and DDP averages the gradients, so the
 clip, the global norm and the update see the global batch's gradients;
 the loss components it returns are averaged over the ranks.
+
+Spans (``utils/prof``, recorded only while tracing): ``rppe.step`` around
+the whole step, with its phases ``rppe.step.prepare`` (gather and device
+augmentation), ``rppe.step.forward`` (forward pass and loss),
+``rppe.step.backward`` and ``rppe.step.optimizer`` (clip, update, EMA).
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.ops import (
     image_augment_device as ida,
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.parallel import dist
+from rgb_proprioceptive_pose_estimator_tpu_torch.utils import prof
 
 ADAM_EPS = 1e-8                  # optax's adam/adamw default
 SGD_MOMENTUM = 0.9
@@ -394,11 +400,14 @@ def forward_backward(model: torch.nn.Module, batch: Dict,
     ``generator`` draws the model's dropout masks. Returns the loss
     components, detached (averaged over the ranks of a group)."""
     model.train()
+    dev = next(model.parameters()).device
     if not accumulate:
         for p in model.parameters():
             p.grad = None
-    _, _, loss, aux = _loss(model, batch, cfg, generator)
-    loss.backward()
+    with prof.span("rppe.step.forward", device=dev):
+        _, _, loss, aux = _loss(model, batch, cfg, generator)
+    with prof.span("rppe.step.backward", device=dev):
+        loss.backward()
     return dist.mean({k: v.detach() for k, v in aux.items()})
 
 
@@ -450,35 +459,39 @@ def train_step(state, batch: Dict, cfg: TrainConfig,
     tensors."""
     model, opt = state.model, state.optimizer
     dev = next(model.parameters()).device
-    batch = prepare_batch(
-        batch, image_cache, device_aug,
-        aug_generator(cfg.seed, state.step, dev) if device_aug else None)
-    generator = None
-    if uses_dropout(model.cfg):
-        generator = dropout_generator(cfg.seed, state.step, dev)
-    runner = model if state.ddp is None else state.ddp
-    sync = (contextlib.nullcontext() if state.ddp is None or opt.applies
-            else state.ddp.no_sync())
-    # every gradient, the frozen leaves' too (model.freeze_backbone)
-    grad_params = [p for p in model.parameters() if p.requires_grad]
-    before = None
-    if cfg.log_grad_norm and opt.mini_step:
-        before = [None if p.grad is None else p.grad.clone()
-                  for p in grad_params]
-    with sync:
-        metrics = forward_backward(runner, batch, cfg, generator,
-                                   accumulate=opt.mini_step > 0)
-    if cfg.debug_nans:
-        _check_nans(metrics["loss"], opt.params, state.step)
-    if cfg.log_grad_norm:
-        if opt.accum > 1:
-            metrics["grad_norm"] = _micro_grad_norm(
-                grad_params, before or [None] * len(grad_params))
-        else:
-            metrics["grad_norm"] = global_norm(
-                p.grad for p in grad_params if p.grad is not None)
-    if opt.step() and state.ema is not None:
-        update_ema(state.ema, model, cfg.ema_decay)
+    with prof.span("rppe.step", device=dev, step=state.step):
+        with prof.span("rppe.step.prepare", device=dev):
+            batch = prepare_batch(
+                batch, image_cache, device_aug,
+                aug_generator(cfg.seed, state.step, dev) if device_aug
+                else None)
+        generator = None
+        if uses_dropout(model.cfg):
+            generator = dropout_generator(cfg.seed, state.step, dev)
+        runner = model if state.ddp is None else state.ddp
+        sync = (contextlib.nullcontext() if state.ddp is None or opt.applies
+                else state.ddp.no_sync())
+        # every gradient, the frozen leaves' too (model.freeze_backbone)
+        grad_params = [p for p in model.parameters() if p.requires_grad]
+        before = None
+        if cfg.log_grad_norm and opt.mini_step:
+            before = [None if p.grad is None else p.grad.clone()
+                      for p in grad_params]
+        with sync:
+            metrics = forward_backward(runner, batch, cfg, generator,
+                                       accumulate=opt.mini_step > 0)
+        if cfg.debug_nans:
+            _check_nans(metrics["loss"], opt.params, state.step)
+        if cfg.log_grad_norm:
+            if opt.accum > 1:
+                metrics["grad_norm"] = _micro_grad_norm(
+                    grad_params, before or [None] * len(grad_params))
+            else:
+                metrics["grad_norm"] = global_norm(
+                    p.grad for p in grad_params if p.grad is not None)
+        with prof.span("rppe.step.optimizer", device=dev):
+            if opt.step() and state.ema is not None:
+                update_ema(state.ema, model, cfg.ema_decay)
     state.step += 1
     return metrics
 

@@ -14,6 +14,8 @@ where the plain version has NaN). The two reductions sum in another order
 than the plain versions: 1e-5 of the sum of magnitudes per channel.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -473,3 +475,44 @@ def test_pr5_predictor_on_cuda_matches_cpu_and_runs_the_kernels(
     cpos, cquat = Predictor(cfg, state_dict=sd, device="cpu")(obs)
     np.testing.assert_allclose(pos, cpos, rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(quat, cquat, rtol=1e-3, atol=1e-4)
+
+
+def test_span_host_clock_meets_the_profilers_device_clock(cuda):
+    """utils/prof's spans take their host times from time.time_ns(), the
+    clock of torch.profiler's timestamps. In one profiler trace, 30 spans
+    5 ms apart, each launching a kernel after a synchronize: each kernel
+    the trace holds starts within 2 ms of its own span's host start, the
+    nearest span to it, and each span's device time (CUDA events around
+    it) covers its kernel. On an H100 the kernel starts 0.04 to 1.1 ms
+    after the span's host start by the trace's clock (its device clock is
+    aligned to the host's only to a fraction of a millisecond, on either
+    side), and the trace may drop a kernel."""
+    from torch.autograd import DeviceType
+
+    from rgb_proprioceptive_pose_estimator_tpu_torch.utils import prof
+
+    x = torch.ones(1 << 24, device=cuda)
+    x.mul_(1.0)
+    torch.cuda.synchronize()
+    prof.drain()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        for i in range(30):
+            time.sleep(0.005)
+            torch.cuda.synchronize()
+            with prof.span("rppe.clock", device=cuda, step=i):
+                x.mul_(1.0)
+        torch.cuda.synchronize()
+    spans = prof.drain()
+    kernels = [e for e in p.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation()]
+    assert len(spans) == 30 and 27 <= len(kernels) <= 30
+    owners = set()
+    for k in kernels:
+        s = min(spans, key=lambda s: abs(k.start_ns() - s["start_ns"]))
+        assert abs(k.start_ns() - s["start_ns"]) <= 2_000_000, (
+            k.start_ns() - s["start_ns"])
+        assert s["device_ms"] * 1e6 >= k.duration_ns() - 1_000
+        owners.add(s["id"])
+    assert len(owners) == len(kernels)
