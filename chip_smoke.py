@@ -23,7 +23,10 @@ Phases, one or more lines each, and the last line is the result:
    sites, 53 BatchNorms) and at pr5's stem site (3072 frames of one
    camera), in f32 and bf16: normalize_u8 and
    scale_bias_relu (the serving path), channel_stats and
-   scale_bias_relu_backward (the training path). One line per site:
+   scale_bias_relu_backward (the training path); then the training
+   BatchNorm's epilogue (bn_affine_act, bn_act_sums, bn_act_dx) at the
+   forty sites of a pr5 step in bf16, with their plain versions' times.
+   One line per site:
    agreement (normalize_u8 and scale_bias_relu exactly, NaN included), the
    bytes moved, time against the bound and its share, the vector width
    the plan chose, the kernel launches of one call (must be 1), the plain
@@ -257,6 +260,14 @@ PR5_BATCH, PR5_FRAMES = 1024, 3
 PR5_IMAGES = PR5_BATCH * PR5_FRAMES
 K1_PR5_SHAPES = [(PR5_IMAGES, 128, 128, 3)]
 K2_PR5_SITES = [((PR5_IMAGES, 64, 64, 64), 1)]
+# the forty BatchNorms of a pr5 step on the pallas route (two encoders of
+# 20), as (NCHW shape, sites with the ReLU, sites without): the stem, then
+# each stage's conv1 (ReLU), conv2 and downsample shortcut (none)
+PR5_BN_SITES = [((PR5_IMAGES, 64, 64, 64), 2, 0),
+                ((PR5_IMAGES, 64, 32, 32), 4, 4),
+                ((PR5_IMAGES, 128, 16, 16), 4, 6),
+                ((PR5_IMAGES, 256, 8, 8), 4, 6),
+                ((PR5_IMAGES, 512, 4, 4), 4, 6)]
 PR5_SAMPLES = 4 * PR5_BATCH      # the in-memory dataset's samples
 PR5_EPISODE = 64                 # steps of each of its episodes
 PR5_CMP_BATCH = 4                # pr5's f32 step against the CPU
@@ -424,8 +435,8 @@ def check_nonfinite_placed(got, want, what: str) -> None:
 
 
 def _short_kernel_name(mangled: str) -> str:
-    """name<type[, V]> from a mangled _ZN...<len>name_kernelI<type>[Li<V>E]
-    kernel template name, else the mangled name."""
+    """name<type[, V][, relu]> from a mangled _ZN...<len>name_kernelI<type>
+    [Li<V>E[Lb<act>E]] kernel template name, else the mangled name."""
     import re
 
     for hit in re.finditer(r"\d+", mangled):
@@ -433,8 +444,12 @@ def _short_kernel_name(mangled: str) -> str:
         rest = mangled[hit.end() + len(name):]
         if name.endswith("_kernel") and rest.startswith("I"):
             dtype = "bf16" if rest.startswith("I13__nv_bfloat16") else "f32"
-            vec = re.match(r"I(?:13__nv_bfloat16|f)Li(\d+)E", rest)
-            return f"{name}<{dtype}{', ' + vec.group(1) if vec else ''}>"
+            vec = re.match(r"I(?:13__nv_bfloat16|f)Li(\d+)E(?:Lb([01])E)?",
+                           rest)
+            tail = f", {vec.group(1)}" if vec else ""
+            if vec and vec.group(2):
+                tail += ", relu" if vec.group(2) == "1" else ", no relu"
+            return f"{name}<{dtype}{tail}>"
     return mangled
 
 
@@ -937,6 +952,119 @@ def phase_sbr_backward(fused, dev, sites_list=K2_SITES, extra=K2_EXTRA,
     return summary
 
 
+def phase_bn_epilogue(fused, dev, sites_list=PR5_BN_SITES,
+                      label="pr5 forty", dtype=torch.bfloat16):
+    """The training BatchNorm's epilogue kernels (bn_affine_act,
+    bn_act_sums, bn_act_dx) at the sites of ``sites_list`` (a pr5 step's
+    forty by default) in ``dtype``, with the ReLU where a site has it: the
+    forward and dx (from the kernel's sums) equal to the plain versions,
+    the sums within 1e-5 of the sums of magnitudes, one launch per call,
+    16-byte accesses; each kernel's time against its bound (bytes at
+    HBM_BYTES_PER_S), and the plain versions' times. One line per site
+    and ReLU choice, then the sums over the sites; returns them."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    fns = {"forward": fused.bn_affine_act, "sums": fused.bn_act_sums,
+           "dx": fused.bn_act_dx}
+    totals = {k: 0.0 for k in ("forward", "sums", "dx", "plain_forward",
+                               "plain_backward", "bound_forward",
+                               "bound_sums", "bound_dx")}
+    it = dtype.itemsize
+    for shape, relu_sites, plain_sites in sites_list:
+        copies = copies_beyond_l2(3 * math.prod(shape) * it)
+        xs = [rows_input(shape, dtype, gen, dev, shift=0.5)
+              for _ in range(copies)]
+        gs = [rows_input(shape, dtype, gen, dev) for _ in range(copies)]
+        n, c = xs[0].numel(), xs[0].shape[1]
+        m = n // c
+        gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+        beta = torch.randn(c, generator=gen, device=dev) * 0.5
+        s, ss = fused.channel_stats(xs[0])
+        mean = s / m
+        inv = torch.rsqrt(torch.clamp_min(ss / m - mean * mean, 0.0) + 1e-5)
+        scale = gamma * inv
+        bias = beta - mean * scale
+        for act, sites in ((True, relu_sites), (False, plain_sites)):
+            if not sites:
+                continue
+            x, g = xs[0], gs[0]
+            y = fns["forward"](x, scale, bias, act)
+            check_exact(y, fused.bn_affine_act_reference(x, scale, bias, act),
+                        f"bn_affine_act {shape} {dtype} act {act}")
+            sg, sgx = fns["sums"](x, g, scale, bias, act)
+            rg, rgx = fused.bn_act_sums_reference(x, g, scale, bias, act)
+            gm = fused.channel_rows(g).float()
+            if act:
+                gm = gm * (fused.channel_rows(y) > 0)
+            xf = fused.channel_rows(x).float()
+            err_g, err_gx = (sg - rg).abs(), (sgx - rgx).abs()
+            check(bool((err_g <= 1e-5 * gm.abs().sum(0) + 1e-6).all()
+                       and (err_gx <= 1e-5 * (gm * xf).abs().sum(0)
+                            + 1e-6).all()),
+                  f"bn_act_sums {shape} {dtype} act {act}: sums outside 1e-5 "
+                  "of the sums of magnitudes")
+            del gm, xf, y
+            tail = (sg, sgx, gamma, mean, inv, m)
+            dx = fns["dx"](x, g, scale, bias, act, *tail)
+            check_exact(dx, fused.bn_act_dx_reference(x, g, scale, bias, act,
+                                                      *tail),
+                        f"bn_act_dx {shape} {dtype} act {act}")
+            del dx
+            args = {"forward": [(xx, scale, bias, act) for xx in xs],
+                    "sums": [(xx, gg, scale, bias, act)
+                             for xx, gg in zip(xs, gs)],
+                    "dx": [(xx, gg, scale, bias, act, *tail)
+                           for xx, gg in zip(xs, gs)]}
+            nbytes = {"forward": 2 * n * it + 2 * c * 4,
+                      "sums": 2 * n * it + 4 * c * 4,
+                      "dx": 3 * n * it + 7 * c * 4}
+            parts = []
+            for k, fn in fns.items():
+                per_call, how = launches_per_call(fn, args[k][0], fn)
+                vec = vector_width(fn, args[k][0], fn, 16 // it)
+                check(per_call == 1 and vec == 16 // it,
+                      f"bn epilogue {k} {shape} {dtype}: {per_call} launches "
+                      f"a call ({how}), vector width {vec}")
+                ms = device_ms(fn, args[k])
+                b_ms, _ = bound(nbytes[k], 0)
+                totals[k] += sites * ms
+                totals[f"bound_{k}"] += sites * b_ms
+                parts.append(f"{k} {ms:.4f} ms bound {b_ms:.4f} ms share "
+                             f"{b_ms / ms:.3f}")
+            plain_f = device_ms(fused.bn_affine_act_reference, args["forward"])
+
+            def plain_backward(xx, gg, *rest):
+                fused.bn_act_sums_reference(xx, gg, scale, bias, act)
+                return fused.bn_act_dx_reference(xx, gg, scale, bias, act,
+                                                 *tail)
+
+            plain_b = device_ms(plain_backward, args["sums"])
+            totals["plain_forward"] += sites * plain_f
+            totals["plain_backward"] += sites * plain_b
+            print(f"kernel bn epilogue {shape} {str(dtype)[6:]} "
+                  f"{'relu' if act else 'no relu'} x{sites} site(s): forward "
+                  f"and dx exact (rtol 0 atol 0), sums max_abs_err "
+                  f"{err_g.max().item():.3g} and {err_gx.max().item():.3g} "
+                  f"(tol 1e-5 of the sums of magnitudes); {'; '.join(parts)}; "
+                  f"vector width {16 // it}; launches per call 1; plain "
+                  f"forward {plain_f:.4f} ms, plain backward (sums and dx) "
+                  f"{plain_b:.4f} ms", flush=True)
+            del args
+        del xs, gs
+        torch.cuda.empty_cache()
+    kernels = totals["forward"] + totals["sums"] + totals["dx"]
+    bounds = (totals["bound_forward"] + totals["bound_sums"]
+              + totals["bound_dx"])
+    print(f"kernel bn epilogue all {label} sites {str(dtype)[6:]}: forward "
+          f"{totals['forward']:.4f} ms (bound {totals['bound_forward']:.4f}), "
+          f"sums {totals['sums']:.4f} ms (bound {totals['bound_sums']:.4f}), "
+          f"dx {totals['dx']:.4f} ms (bound {totals['bound_dx']:.4f}); "
+          f"together {kernels:.4f} ms bound {bounds:.4f} ms share "
+          f"{bounds / kernels:.3f}; plain forward "
+          f"{totals['plain_forward']:.4f} ms, plain backward "
+          f"{totals['plain_backward']:.4f} ms", flush=True)
+    return totals
+
+
 def requests(model_cfg, seed, batches, dead=()):
     """Observations of each batch size of ``batches`` (1 unbatched), with
     T frames per camera where the model stacks or sequences them; then,
@@ -1352,8 +1480,20 @@ def _counts(fused):
     return {k: getattr(fused, k).launches for k in KERNEL_COUNTERS}
 
 
+# the training BatchNorm's epilogue (no TPU kernel: XLA in the JAX package)
+EPILOGUE_COUNTERS = ("bn_affine_act", "bn_act_sums", "bn_act_dx")
+
+
+def _epilogue_counts(fused):
+    """Launches of each epilogue kernel, and their one-element launches."""
+    out = {k: getattr(fused, k).launches for k in EPILOGUE_COUNTERS}
+    out["scalar"] = sum(getattr(fused, k).scalar_launches
+                        for k in EPILOGUE_COUNTERS)
+    return out
+
+
 def _zero_counts(fused):
-    for k in KERNEL_COUNTERS:
+    for k in KERNEL_COUNTERS + EPILOGUE_COUNTERS:
         getattr(fused, k).launches = 0
     fused.scale_bias_relu.grad_layout_copies = 0
 
@@ -1379,10 +1519,13 @@ class ReluTape:
     batch 16 has several such inputs among its 12 million. Replaying the
     card's decisions on the CPU removes that one ambiguity and leaves
     every other difference to the check. Inside ``with tape.record(fused)``
-    (card) or ``tape.replay(fused)`` (CPU) ``torch.relu`` and the
-    scale_bias_relu Function's forward and backward use the tape; the
-    mask of scale_bias_relu is that of its kernels, forward and backward,
-    round(round(x*scale) + bias) > 0."""
+    (card) or ``tape.replay(fused)`` (CPU) ``torch.relu``, the
+    scale_bias_relu Function's forward and backward, and the training
+    BatchNorm's epilogue with its ReLU (ops/fused_bn's bn_affine_act,
+    bn_act_sums and bn_act_dx, patched there so that the wrappers in
+    ops/fused keep their launch counters) use the tape; the mask of both
+    is that of their kernels, forward and backward, round(round(x*scale) +
+    bias) > 0."""
 
     def __init__(self):
         self.masks = []
@@ -1390,21 +1533,31 @@ class ReluTape:
         self.flips = 0
         self.n = 0
 
-    def _patch(self, fused, relu, sbr_forward, sbr_backward):
+    _EPILOGUE = ("bn_affine_act", "bn_act_sums", "bn_act_dx")
+
+    def _patch(self, fused, relu, sbr_forward, sbr_backward, epilogue):
         import contextlib
+
+        from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused_bn
 
         @contextlib.contextmanager
         def patched():
             saved = (torch.relu, fused._sbr_forward,
-                     fused.scale_bias_relu_backward)
+                     fused.scale_bias_relu_backward,
+                     *(getattr(fused_bn, k) for k in self._EPILOGUE))
             torch.relu, fused._sbr_forward = relu, sbr_forward
             if sbr_backward is not None:
                 fused.scale_bias_relu_backward = sbr_backward
+            for k, f in zip(self._EPILOGUE, epilogue):
+                if f is not None:
+                    setattr(fused_bn, k, f)
             try:
                 yield self
             finally:
                 (torch.relu, fused._sbr_forward,
-                 fused.scale_bias_relu_backward) = saved
+                 fused.scale_bias_relu_backward) = saved[:3]
+                for k, f in zip(self._EPILOGUE, saved[3:]):
+                    setattr(fused_bn, k, f)
         return patched()
 
     @staticmethod
@@ -1414,6 +1567,7 @@ class ReluTape:
 
     def record(self, fused):
         relu, sbr_forward = torch.relu, fused._sbr_forward
+        bn_forward = fused.bn_affine_act
 
         def rec_relu(x):
             self.masks.append((x > 0).cpu())
@@ -1423,7 +1577,13 @@ class ReluTape:
             self.masks.append((self._pre(x, scale, bias) > 0).cpu())
             return sbr_forward(x, scale, bias)
 
-        return self._patch(fused, rec_relu, rec_sbr, None)
+        def rec_bn(x, scale, bias, act):
+            if act:
+                self.masks.append((self._pre(x, scale, bias) > 0).cpu())
+            return bn_forward(x, scale, bias, act)
+
+        return self._patch(fused, rec_relu, rec_sbr, None,
+                           (rec_bn, None, None))
 
     def save(self, path):
         """The recorded decisions to ``path``, eight to a byte."""
@@ -1471,7 +1631,31 @@ class ReluTape:
                     torch.sum(gm * x.float(), dim=dims),
                     torch.sum(gm, dim=dims))
 
-        return self._patch(fused, rep_relu, rep_sbr, rep_sbr_backward)
+        # the epilogue with its ReLU: the recorded decision, and in the
+        # backward the gradient it passes, g or 0, given to the plain
+        # versions without the ReLU
+        def rep_bn(x, scale, bias, act):
+            if not act:
+                return fused.bn_affine_act_reference(x, scale, bias, False)
+            pre = self._pre(x, scale, bias)
+            m = take(pre > 0)
+            self.by_ptr[x.data_ptr()] = m
+            return torch.where(m, pre, torch.zeros_like(pre)).to(x.dtype)
+
+        def passed(x, g, act):
+            return (torch.where(self.by_ptr[x.data_ptr()], g,
+                                torch.zeros_like(g)) if act else g)
+
+        def rep_bn_sums(x, g, scale, bias, act):
+            return fused.bn_act_sums_reference(x, passed(x, g, act), scale,
+                                               bias, False)
+
+        def rep_bn_dx(x, g, scale, bias, act, *rest):
+            return fused.bn_act_dx_reference(x, passed(x, g, act), scale,
+                                             bias, False, *rest)
+
+        return self._patch(fused, rep_relu, rep_sbr, rep_sbr_backward,
+                           (rep_bn, rep_bn_sums, rep_bn_dx))
 
 
 def compare_step_with_cpu(fused, cfg, label, dataset, dev, n=CMP_BATCH):
@@ -1611,7 +1795,7 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     if state is None:
         state = create_state(cfg, dev)
     act_sites, bn_count = bn_sites(state.model)
-    steps, evals = [], []
+    steps, evals, epilogue_steps = [], [], []
     train_step, eval_step = loop.train_step, loop.eval_step
     # the device cache and augmentation train_on passes to the step, kept
     # for the profile below
@@ -1620,12 +1804,14 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     def timed_step(st, b, tc, *data):
         step_data["args"] = data
         before = _counts(fused)
+        epilogue = _epilogue_counts(fused)
         copies = fused.scale_bias_relu.grad_layout_copies
         t = time.perf_counter()
         m = train_step(st, b, tc, *data)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t, _delta(_counts(fused), before),
                       fused.scale_bias_relu.grad_layout_copies - copies))
+        epilogue_steps.append(_delta(_epilogue_counts(fused), epilogue))
         return m
 
     def counted_eval(model, b, tc):
@@ -1639,7 +1825,8 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     try:
         _zero_counts(fused)
         out = loop.train_on(cfg, state, dataset, dataset)
-        launches = _counts(fused)
+        launches = {**_counts(fused), **{k: getattr(fused, k).launches
+                                         for k in EPILOGUE_COUNTERS}}
         copies = fused.scale_bias_relu.grad_layout_copies
     finally:
         loop.train_step, loop.eval_step = train_step, eval_step
@@ -1666,6 +1853,14 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
     for i, (_, seen, _) in enumerate(steps):
         check(seen == want_step, f"{label} step {i + 1}: launches {seen}, "
                                  f"expected {want_step}")
+    # the training BatchNorm's epilogue: forward, sums and dx at every
+    # BatchNorm on the matmul and pallas routes, 16 bytes per access
+    sites = 0 if cfg.model.bn_stats == "reduce" else bn_count
+    want_epilogue = {**{k: sites for k in EPILOGUE_COUNTERS}, "scalar": 0}
+    for i, seen in enumerate(epilogue_steps):
+        check(seen == want_epilogue, f"{label} step {i + 1}: BN epilogue "
+                                     f"launches {seen}, expected "
+                                     f"{want_epilogue}")
     for i, seen in enumerate(evals):
         check(seen == want_eval, f"{label} eval forward {i + 1}: launches "
                                  f"{seen}, expected {want_eval}")
@@ -1682,7 +1877,9 @@ def run_training(fused, cfg, label, dataset, dev, smi, state=None,
           f"{evals_text}; peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated) ({smi})", flush=True)
     print(f"train {label}: gradient layout copies per step "
-          f"{[c for _, _, c in steps]} (total {copies})", flush=True)
+          f"{[c for _, _, c in steps]} (total {copies}); BN epilogue "
+          f"launches per step {want_epilogue} (all {len(steps)} steps)",
+          flush=True)
     times = [t * 1e3 for t, _, _ in steps]
     warm = tcfg.steps_per_call
     if len(steps) <= warm:
@@ -4454,6 +4651,9 @@ def main() -> int:
     phase_sbr_backward(fused, dev, K2_PR5_SITES, [], "pr5 stem",
                        nonfinite=False)
     torch.cuda.empty_cache()
+    # the training BatchNorm's epilogue at the forty sites of a pr5 step
+    phase_bn_epilogue(fused, dev)
+    torch.cuda.empty_cache()
     # each main path is driven with the counts set to 0 just before it and
     # read just after; a kernel's launches are the sum over the paths
     with tempfile.TemporaryDirectory() as ckpt_root:
@@ -4532,8 +4732,14 @@ def main() -> int:
         paths["flagship pr5-full"] = phase_flagship(fused, dev, smi,
                                                     ckpt_root)
     launches = {k: sum(p.get(k, 0) for p in paths.values())
-                for k in KERNEL_COUNTERS}
+                for k in KERNEL_COUNTERS + EPILOGUE_COUNTERS}
     print(f"launches by main path: {json.dumps(paths)}", flush=True)
+    epilogue = {k: launches[k] for k in EPILOGUE_COUNTERS}
+    print(f"launches of the training BatchNorm's epilogue on the main paths "
+          f"(training on the matmul and pallas routes): {epilogue}",
+          flush=True)
+    for k in EPILOGUE_COUNTERS:
+        check(launches[k] > 0, f"{k} was not launched on the main path")
 
     source = "rgb_proprioceptive_pose_estimator_tpu_torch/csrc/fused.cu"
     jax_file = "rgb_proprioceptive_pose_estimator_tpu/ops/pallas_fused.py"

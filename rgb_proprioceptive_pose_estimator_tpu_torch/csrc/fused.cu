@@ -1,7 +1,7 @@
-// Hand-written Hopper kernels for the memory-bound Pallas kernels and the
-// scale-bias-ReLU gradient. Built for sm_90a by ops/_build.py with nvcc into
-// a shared library with a plain C interface; ops/fused.py binds it with
-// ctypes.
+// Hand-written Hopper kernels for the memory-bound Pallas kernels, the
+// scale-bias-ReLU gradient and the epilogue of training BatchNorm. Built for
+// sm_90a by ops/_build.py with nvcc into a shared library with a plain C
+// interface; ops/fused.py binds it with ctypes.
 //
 // rppe_normalize_u8 replaces rgb_proprioceptive_pose_estimator_tpu/ops/
 //   pallas_fused.py:pallas_normalize_u8 (body _normalize_kernel):
@@ -46,7 +46,8 @@
 // as in torch.clamp_min and jnp.maximum (fmaxf would return 0).
 //
 // What is left for later: fusing the epilogue into the convolution that
-// writes x, which would save a whole read and write of the activation.
+// writes x, which would save a whole read and write of the activation; and
+// the BasicBlock's residual add + ReLU, still plain torch.
 //
 // Two per-channel reductions of the training path follow, both over
 // x (m, c) with channels innermost:
@@ -105,6 +106,38 @@
 // each leaves its tickets at 0; two launches that ran at once on two
 // streams with one buffer would mix their tickets, which is why the buffer
 // is per stream.
+//
+// Three kernels carry the epilogue of training BatchNorm (ops/fused_bn.py,
+// the bn_stats "matmul" and "pallas" routes), with the ReLU (Act) or
+// without. In the JAX package this epilogue is XLA, not Pallas: they are a
+// design for the card, not a port. Written in plain torch, the epilogue
+// made about 15 passes over the activation, each an f32 tensor of its size
+// (about 28 bytes an element forward and 74 backward); these move 4 bytes
+// an element forward and 10 backward in bf16:
+//   - rppe_bn_affine_act: y = act(x*scale + bias) in x's dtype, K2's forward
+//     with the ReLU a template flag (the same body, so the same bits).
+//   - rppe_bn_act_sums: the backward's first pass, in one read of x and g:
+//     with gm = g where round(round(x*scale) + bias) > 0 (Act), else 0, or
+//     gm = g (no Act), the f32 per-channel sums sum(gm) and sum(gm*x). It is
+//     the K2 backward's mapping, ticket fold and fixed summation order
+//     without the dx store, so the sums repeat bit for bit. A rank of a
+//     data-parallel group sums them over the ranks before the second pass,
+//     which is why the backward is two launches: x and g of the largest
+//     site are far larger than the 50 MB L2, so one cooperative launch
+//     would read them twice from device memory all the same.
+//   - rppe_bn_act_dx: the second pass: dx = gm*a + x*b + c in f32, written
+//     in x's dtype, with the closed form's per-channel a, b and c computed
+//     in each thread's prologue from the sums, gamma, mean, inv and the
+//     count n, every product, quotient and sum rounded once in the order
+//     ops/fused.py's plain version computes them (no contracted FMA), so
+//     that dx equals it bit for bit given the same sums. It walks rows as
+//     K2's forward does, U = 4 rows of x and of g in flight; its 40
+//     per-channel constants at V = 8 (a, b, c, and the mask's scale and
+//     bias) leave room for one block of 512 threads per SM, not two, which
+//     its plan (ops/fused.py _sbr_forward_plan at _DX_BLOCKS_PER_SM) sizes
+//     the grid for.
+// The mask is a select, as torch.relu's gradient (threshold_backward) is,
+// not K2's multiply: a NaN or inf g where the ReLU is off gives 0 there.
 
 #include <cstdint>
 #include <cstring>
@@ -352,15 +385,15 @@ normalize_u8_kernel(const uint8_t* __restrict__ x, Out* __restrict__ y,
   }
 }
 
-// K2's forward. The thread's rows are row slot ty, ty + ty_count, ... of its
-// block's group; offsets within the group fit in 32 bits (rows_per_group * c
-// <= INT_MAX, checked by the host function).
-template <typename T, int V>
-__global__ void __launch_bounds__(kRowThreads, kSbrBlocksPerSm)
-scale_bias_relu_kernel(const T* __restrict__ x, T* __restrict__ y,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ bias, int64_t m, int c,
-                       int rows_per_group) {
+// K2's forward, and the training BatchNorm's with or without the ReLU: y =
+// act(x * scale + bias). The thread's rows are row slot ty, ty + ty_count,
+// ... of its block's group; offsets within the group fit in 32 bits
+// (rows_per_group * c <= INT_MAX, checked by the host function).
+template <typename T, int V, bool Act>
+__device__ __forceinline__ void affine_act_rows(
+    const T* __restrict__ x, T* __restrict__ y,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    int64_t m, int c, int rows_per_group) {
   constexpr int U = 4;             // rows whose loads are in flight at once
   using VT = Vec<T, V>;
   const int chunk = blockIdx.x * blockDim.x + threadIdx.x;
@@ -391,11 +424,32 @@ scale_bias_relu_kernel(const T* __restrict__ x, T* __restrict__ y,
         float v[V];
         VT::unpack(raw[u], v);
 #pragma unroll
-        for (int i = 0; i < V; ++i) v[i] = relu_keep_nan(mul_add_rn(v[i], s[i], b[i]));
+        for (int i = 0; i < V; ++i) {
+          v[i] = mul_add_rn(v[i], s[i], b[i]);
+          if (Act) v[i] = relu_keep_nan(v[i]);
+        }
         VT::store(yb + rr * c, v);
       }
     }
   }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kRowThreads, kSbrBlocksPerSm)
+scale_bias_relu_kernel(const T* __restrict__ x, T* __restrict__ y,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, int64_t m, int c,
+                       int rows_per_group) {
+  affine_act_rows<T, V, true>(x, y, scale, bias, m, c, rows_per_group);
+}
+
+template <typename T, int V, bool Act>
+__global__ void __launch_bounds__(kRowThreads, kSbrBlocksPerSm)
+bn_affine_act_kernel(const T* __restrict__ x, T* __restrict__ y,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ bias, int64_t m, int c,
+                     int rows_per_group) {
+  affine_act_rows<T, V, Act>(x, y, scale, bias, m, c, rows_per_group);
 }
 
 __device__ __forceinline__ void fence_acq_rel_gpu() {
@@ -596,6 +650,148 @@ sbr_backward_kernel(const T* __restrict__ x, const T* __restrict__ g,
   finish_reduction<V>(acc, c, part, tickets, dscale, dbias);
 }
 
+// The ReLU's gradient as torch.relu's backward takes it: g where the
+// forward's pre-activation, rounded as there, is above 0, else 0 (a select:
+// a NaN or inf g where the ReLU is off gives 0).
+__device__ __forceinline__ float relu_grad(float x, float g, float s,
+                                           float b) {
+  return mul_add_rn(x, s, b) > 0.0f ? g : 0.0f;
+}
+
+// The backward's first pass: sum_g = sum(gm) and sum_gx = sum(gm * x) per
+// channel, gm = relu_grad(...) with Act, else g; K2's backward without dx.
+template <typename T, int V, bool Act>
+__global__ void __launch_bounds__(kRowThreads)
+bn_act_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, int64_t m, int c,
+                   int rows_per_group, float* __restrict__ part,
+                   int* __restrict__ tickets, float* __restrict__ sum_g,
+                   float* __restrict__ sum_gx) {
+  constexpr int U = 4;             // rows whose loads are in flight at once
+  using VT = Vec<T, V>;
+  const int chunk = blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * rows_per_group;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(rows_per_group), m - row0));
+  const int step = blockDim.y;
+  float acc[2 * V];
+#pragma unroll
+  for (int k = 0; k < 2 * V; ++k) acc[k] = 0.0f;
+  if (chunk * V < c) {
+    float s[V], b[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      s[i] = Act ? scale[chunk * V + i] : 0.0f;
+      b[i] = Act ? bias[chunk * V + i] : 0.0f;
+    }
+    const int64_t at = row0 * c + chunk * V;
+    const T* xb = x + at;
+    const T* gb = g + at;
+    for (int r = threadIdx.y; r < rows; r += U * step) {
+      typename VT::Raw rx[U], rg[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int rr = r + u * step;
+        if (rr < rows) {
+          rx[u] = VT::load(xb + rr * c);
+          rg[u] = VT::load(gb + rr * c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u * step < rows) {
+          float xv[V], gv[V];
+          VT::unpack(rx[u], xv);
+          VT::unpack(rg[u], gv);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float gm = Act ? relu_grad(xv[i], gv[i], s[i], b[i]) : gv[i];
+            acc[i] += gm;
+            acc[V + i] += gm * xv[i];
+          }
+        }
+      }
+    }
+  }
+  finish_reduction<V>(acc, c, part, tickets, sum_g, sum_gx);
+}
+
+// blocks of bn_act_dx_kernel an SM holds at once (ops/fused.py
+// _DX_BLOCKS_PER_SM): its 40 per-channel constants at V = 8 and 8 loads in
+// flight take more than the 64 registers two blocks of 512 would leave
+constexpr int kDxBlocksPerSm = 1;
+
+// The backward's second pass: dx = gm*a + x*b + c per element, with the
+// closed form's per-channel constants (ops/fused.py bn_dx_coefficients):
+//   sum_g_xhat = (sum_gx - mean * sum_g) * inv
+//   a = gamma * inv
+//   b = -gamma * (inv * inv) * sum_g_xhat / n
+//   c = -(a * sum_g / n) - b * mean
+// each operation rounded once, in this order, as the plain version's torch
+// operations are. Rows as in K2's forward.
+template <typename T, int V, bool Act>
+__global__ void __launch_bounds__(kRowThreads, kDxBlocksPerSm)
+bn_act_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ sum_g,
+                 const float* __restrict__ sum_gx,
+                 const float* __restrict__ gamma,
+                 const float* __restrict__ mean,
+                 const float* __restrict__ inv, float n, int64_t m, int c,
+                 int rows_per_group, T* __restrict__ dx) {
+  constexpr int U = 4;             // rows whose loads are in flight at once
+  using VT = Vec<T, V>;
+  const int chunk = blockIdx.x * blockDim.x + threadIdx.x;
+  if (chunk * V >= c) return;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * rows_per_group;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(rows_per_group), m - row0));
+  const int step = blockDim.y;
+  float s[V], b[V], ka[V], kb[V], kc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int ch = chunk * V + i;
+    s[i] = Act ? scale[ch] : 0.0f;
+    b[i] = Act ? bias[ch] : 0.0f;
+    const float sg = sum_g[ch], mu = mean[ch], iv = inv[ch], ga = gamma[ch];
+    const float sgx = __fmul_rn(__fsub_rn(sum_gx[ch], __fmul_rn(mu, sg)), iv);
+    ka[i] = __fmul_rn(ga, iv);
+    kb[i] = __fdiv_rn(__fmul_rn(__fmul_rn(-ga, __fmul_rn(iv, iv)), sgx), n);
+    kc[i] = __fsub_rn(-__fdiv_rn(__fmul_rn(ka[i], sg), n), __fmul_rn(kb[i], mu));
+  }
+  const int64_t at = row0 * c + chunk * V;
+  const T* xb = x + at;
+  const T* gb = g + at;
+  T* db = dx + at;
+  for (int r = threadIdx.y; r < rows; r += U * step) {
+    typename VT::Raw rx[U], rg[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * step;
+      if (rr < rows) {
+        rx[u] = VT::load(xb + rr * c);
+        rg[u] = VT::load(gb + rr * c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * step;
+      if (rr < rows) {
+        float xv[V], gv[V], d[V];
+        VT::unpack(rx[u], xv);
+        VT::unpack(rg[u], gv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float gm = Act ? relu_grad(xv[i], gv[i], s[i], b[i]) : gv[i];
+          d[i] = __fadd_rn(
+              __fadd_rn(__fmul_rn(gm, ka[i]), __fmul_rn(xv[i], kb[i])), kc[i]);
+        }
+        VT::store(db + rr * c, d);
+      }
+    }
+  }
+}
+
 // The plan a host function was given, checked: any mistake returns
 // cudaErrorInvalidValue before anything is launched.
 struct RowPlan {
@@ -677,6 +873,70 @@ void launch_sbr_backward(dim3 grid, dim3 block, cudaStream_t s, const void* x,
       rows_per_group, static_cast<T*>(dx), static_cast<float*>(part),
       static_cast<int*>(tickets), static_cast<float*>(dscale),
       static_cast<float*>(dbias));
+}
+
+template <typename T, int V>
+void launch_bn_affine_act(bool act, dim3 grid, dim3 block, cudaStream_t s,
+                          const void* x, void* y, const void* scale,
+                          const void* bias, int64_t m, int c,
+                          int rows_per_group) {
+  const T* xt = static_cast<const T*>(x);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  if (act)
+    bn_affine_act_kernel<T, V, true><<<grid, block, 0, s>>>(
+        xt, static_cast<T*>(y), sc, bi, m, c, rows_per_group);
+  else
+    bn_affine_act_kernel<T, V, false><<<grid, block, 0, s>>>(
+        xt, static_cast<T*>(y), sc, bi, m, c, rows_per_group);
+}
+
+template <typename T, int V>
+void launch_bn_act_sums(bool act, dim3 grid, dim3 block, cudaStream_t s,
+                        const void* x, const void* g, const void* scale,
+                        const void* bias, int64_t m, int c,
+                        int rows_per_group, void* part, void* tickets,
+                        void* sum_g, void* sum_gx) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* pt = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
+  float* o0 = static_cast<float*>(sum_g);
+  float* o1 = static_cast<float*>(sum_gx);
+  if (act)
+    bn_act_sums_kernel<T, V, true><<<grid, block, 0, s>>>(
+        xt, gt, sc, bi, m, c, rows_per_group, pt, tk, o0, o1);
+  else
+    bn_act_sums_kernel<T, V, false><<<grid, block, 0, s>>>(
+        xt, gt, sc, bi, m, c, rows_per_group, pt, tk, o0, o1);
+}
+
+// The per-channel inputs of bn_act_dx_kernel: the forward's scale and bias
+// (for the mask), the two sums, gamma, the batch mean and inv, in order.
+struct DxChannels {
+  const void* v[7];
+};
+
+template <typename T, int V>
+void launch_bn_act_dx(bool act, dim3 grid, dim3 block, cudaStream_t s,
+                      const void* x, const void* g, const DxChannels& ch,
+                      float n, int64_t m, int c, int rows_per_group,
+                      void* dx) {
+  const float* f[7];
+  for (int i = 0; i < 7; ++i) f[i] = static_cast<const float*>(ch.v[i]);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* out = static_cast<T*>(dx);
+  if (act)
+    bn_act_dx_kernel<T, V, true><<<grid, block, 0, s>>>(
+        xt, gt, f[0], f[1], f[2], f[3], f[4], f[5], f[6], n, m, c,
+        rows_per_group, out);
+  else
+    bn_act_dx_kernel<T, V, false><<<grid, block, 0, s>>>(
+        xt, gt, f[0], f[1], f[2], f[3], f[4], f[5], f[6], n, m, c,
+        rows_per_group, out);
 }
 
 }  // namespace
@@ -814,6 +1074,102 @@ int rppe_scale_bias_relu_backward(const void* x, const void* g,
     launch_sbr_backward<float, 1>(grid, block, s, x, g, scale, bias, m, c,
                                   rows_per_group, dx, part, tickets, dscale,
                                   dbias);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The training BatchNorm's epilogue (ops/fused.py bn_affine_act,
+// bn_act_sums, bn_act_dx): x, y, g, dx are (m, c) values of f32 (is_bf16
+// == 0) or bf16, channels innermost; every per-channel vector is c device
+// floats; act != 0 applies the ReLU. rppe_bn_affine_act and rppe_bn_act_dx
+// take the plan of ops/fused.py:_sbr_forward_plan (the latter at
+// _DX_BLOCKS_PER_SM blocks per SM), rppe_bn_act_sums that of
+// _reduction_plan (with part and tickets as the reductions above take them).
+int rppe_bn_affine_act(const void* x, void* y, const void* scale,
+                       const void* bias, int64_t m, int c, int is_bf16,
+                       int act, int vec, int tx, int tiles, int groups,
+                       int rows_per_group, int device, void* stream) {
+  const RowPlan plan{vec, tx, tiles, groups, rows_per_group};
+  if (!plan_ok(plan, m, c, is_bf16, {x, y}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles, groups), block(tx, kRowThreads / tx);
+  if (is_bf16 && vec == 8)
+    launch_bn_affine_act<__nv_bfloat16, 8>(act, grid, block, s, x, y, scale,
+                                           bias, m, c, rows_per_group);
+  else if (is_bf16)
+    launch_bn_affine_act<__nv_bfloat16, 1>(act, grid, block, s, x, y, scale,
+                                           bias, m, c, rows_per_group);
+  else if (vec == 4)
+    launch_bn_affine_act<float, 4>(act, grid, block, s, x, y, scale, bias, m,
+                                   c, rows_per_group);
+  else
+    launch_bn_affine_act<float, 1>(act, grid, block, s, x, y, scale, bias, m,
+                                   c, rows_per_group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sum_g, sum_gx: c device floats each.
+int rppe_bn_act_sums(const void* x, const void* g, const void* scale,
+                     const void* bias, int64_t m, int c, int is_bf16, int act,
+                     int vec, int tx, int tiles, int groups,
+                     int rows_per_group, void* part, void* tickets,
+                     void* sum_g, void* sum_gx, int device, void* stream) {
+  const RowPlan plan{vec, tx, tiles, groups, rows_per_group};
+  if (!plan_ok(plan, m, c, is_bf16, {x, g}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles, groups), block(tx, kRowThreads / tx);
+  if (is_bf16 && vec == 8)
+    launch_bn_act_sums<__nv_bfloat16, 8>(act, grid, block, s, x, g, scale,
+                                         bias, m, c, rows_per_group, part,
+                                         tickets, sum_g, sum_gx);
+  else if (is_bf16)
+    launch_bn_act_sums<__nv_bfloat16, 1>(act, grid, block, s, x, g, scale,
+                                         bias, m, c, rows_per_group, part,
+                                         tickets, sum_g, sum_gx);
+  else if (vec == 4)
+    launch_bn_act_sums<float, 4>(act, grid, block, s, x, g, scale, bias, m, c,
+                                 rows_per_group, part, tickets, sum_g,
+                                 sum_gx);
+  else
+    launch_bn_act_sums<float, 1>(act, grid, block, s, x, g, scale, bias, m, c,
+                                 rows_per_group, part, tickets, sum_g,
+                                 sum_gx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scale, bias, sum_g, sum_gx, gamma, mean, inv: c device floats each; n: the
+// count the statistics divide by, as an f32.
+int rppe_bn_act_dx(const void* x, const void* g, const void* scale,
+                   const void* bias, const void* sum_g, const void* sum_gx,
+                   const void* gamma, const void* mean, const void* inv,
+                   float n, int64_t m, int c, int is_bf16, int act, int vec,
+                   int tx, int tiles, int groups, int rows_per_group,
+                   void* dx, int device, void* stream) {
+  const RowPlan plan{vec, tx, tiles, groups, rows_per_group};
+  if (!plan_ok(plan, m, c, is_bf16, {x, g, dx}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles, groups), block(tx, kRowThreads / tx);
+  const DxChannels ch{{scale, bias, sum_g, sum_gx, gamma, mean, inv}};
+  if (is_bf16 && vec == 8)
+    launch_bn_act_dx<__nv_bfloat16, 8>(act, grid, block, s, x, g, ch, n, m, c,
+                                       rows_per_group, dx);
+  else if (is_bf16)
+    launch_bn_act_dx<__nv_bfloat16, 1>(act, grid, block, s, x, g, ch, n, m, c,
+                                       rows_per_group, dx);
+  else if (vec == 4)
+    launch_bn_act_dx<float, 4>(act, grid, block, s, x, g, ch, n, m, c,
+                               rows_per_group, dx);
+  else
+    launch_bn_act_dx<float, 1>(act, grid, block, s, x, g, ch, n, m, c,
+                               rows_per_group, dx);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -53,8 +53,10 @@ class BatchNormAct(nn.Module):
       (with ``act``), whose backward is a kernel too; autograd reaches x
       through the statistics as well.
     - "matmul" / "pallas": ``ops/fused_bn.bn_train`` with its statistics
-      from plain contractions or from the ``channel_stats`` kernel, and
-      its closed-form backward; then plain ReLU.
+      from plain contractions or from the ``channel_stats`` kernel, the
+      ReLU (with ``act``) part of it: the forward and its closed-form
+      backward are the ``bn_affine_act``, ``bn_act_sums`` and
+      ``bn_act_dx`` kernels.
 
     On a rank of a data-parallel group the statistics are the global
     batch's, as XLA's psum makes them in the JAX package: the sums go
@@ -126,9 +128,7 @@ class BatchNormAct(nn.Module):
             y = self._affine(x, scale, self.bias - mean * scale)
         else:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
-                                    self.stats_impl)
-            if self.act:
-                y = torch.relu(y)
+                                    self.stats_impl, act=self.act)
             y = y.to(self.compute_dtype)
         if self.update_running:
             self._update_running(mean.detach(), var.detach(), n)

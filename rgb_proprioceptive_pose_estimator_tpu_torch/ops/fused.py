@@ -9,6 +9,12 @@ their plain PyTorch versions.
   package's ``_sbr_bwd``).
 - ``channel_stats``: per-channel f32 (sum x, sum x^2) in one read of x,
   the BatchNorm training statistics (the JAX package's ``channel_stats``).
+- ``bn_affine_act``, ``bn_act_sums``, ``bn_act_dx``: the epilogue of
+  training BatchNorm (``ops/fused_bn.py``), with or without its ReLU: the
+  forward ``act(x * scale + bias)``, then the closed-form backward's two
+  passes, the per-channel sums ``sum(gm)`` and ``sum(gm * x)`` of the
+  gradient the ReLU passes, and ``dx = gm*a + x*b + c`` (XLA in the JAX
+  package, so a design for the card rather than a port).
 
 A wrapper checks its inputs the same way on every device. A tensor on the
 CPU then goes to the plain version (``*_reference``); a CUDA tensor goes
@@ -17,9 +23,10 @@ counts its kernel launches in ``<wrapper>.launches``; every call is one
 launch. The kernels move 16 bytes per access; a launch that moves one
 element per access instead (C not a multiple of 16 bytes' worth, or a
 pointer not 16-byte aligned) is also counted in
-``<wrapper>.scalar_launches``. normalize_u8 and scale_bias_relu equal
-their plain versions exactly (NaN where they have NaN); the two
-reductions are deterministic: the same input gives bitwise-equal sums.
+``<wrapper>.scalar_launches``. normalize_u8, scale_bias_relu,
+bn_affine_act and bn_act_dx equal their plain versions exactly (NaN where
+they have NaN; bn_act_dx given the same sums); the three reductions are
+deterministic: the same input gives bitwise-equal sums.
 
 normalize_u8 and scale_bias_relu are the torch ops ``rppe::normalize_u8``
 and ``rppe::scale_bias_relu`` (``torch.library`` custom ops with a fake
@@ -66,6 +73,15 @@ def _lib() -> ctypes.CDLL:
                                                   i32, i32, *plan, ptr, ptr,
                                                   ptr, ptr, ptr, i32, ptr]
     lib.rppe_scale_bias_relu_backward.restype = i32
+    lib.rppe_bn_affine_act.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
+                                       *plan, i32, ptr]
+    lib.rppe_bn_affine_act.restype = i32
+    lib.rppe_bn_act_sums.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
+                                     *plan, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.rppe_bn_act_sums.restype = i32
+    lib.rppe_bn_act_dx.argtypes = [ptr] * 9 + [ctypes.c_float, i64, i32, i32,
+                                               i32, *plan, ptr, i32, ptr]
+    lib.rppe_bn_act_dx.restype = i32
     lib.rppe_error_string.argtypes = [i32]
     lib.rppe_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,6 +126,16 @@ def _same_layout(x: torch.Tensor, g: torch.Tensor) -> bool:
     return g.shape == x.shape and g.is_contiguous(memory_format=fmt)
 
 
+def _check_pair(x: torch.Tensor, g: torch.Tensor, name: str) -> None:
+    """g has x's dtype, device and channels-innermost layout."""
+    if g.dtype != x.dtype or not _same_layout(x, g):
+        raise ValueError(f"{name}: g must have x's dtype, shape and layout "
+                         f"(x {x.dtype} {tuple(x.shape)} {x.stride()}, g "
+                         f"{g.dtype} {tuple(g.shape)} {g.stride()})")
+    if g.device != x.device:
+        raise ValueError(f"{name}: x and g must be on one device")
+
+
 def _check_channel_vectors(x: torch.Tensor, name: str,
                            *vectors: torch.Tensor) -> None:
     c = x.shape[1]
@@ -150,6 +176,10 @@ _RED_TILE_CHANNELS = 64
 # blocks per SM (kSbrBlocksPerSm: its __launch_bounds__ holds that many
 # resident, so the planned grid runs in one wave)
 _SBR_UNROLL, _SBR_BLOCKS_PER_SM = 4, 2
+# bn_act_dx's blocks per SM (kDxBlocksPerSm: its per-channel constants and
+# loads in flight leave room for one block of 512 per SM); its rows of
+# loads in flight are _SBR_UNROLL
+_DX_BLOCKS_PER_SM = 1
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -201,16 +231,18 @@ def _check_groups(groups: int, rows: int, m: int, c: int) -> None:
 
 
 def _sbr_forward_plan(m: int, c: int, dtype: torch.dtype,
-                      data_ptrs: Sequence[int], sms: int) -> RowPlan:
+                      data_ptrs: Sequence[int], sms: int,
+                      blocks_per_sm: int = _SBR_BLOCKS_PER_SM) -> RowPlan:
     """The launch of scale_bias_relu's kernel over x (m, c) of ``dtype``,
-    with x and the output at ``data_ptrs``, on a card of ``sms`` SMs.
+    with x and the output at ``data_ptrs``, on a card of ``sms`` SMs (and
+    of bn_affine_act's, and of bn_act_dx's with ``blocks_per_sm`` its own).
 
     - 16-byte accesses where C and the pointers allow them
       (_vector_width), else one element.
     - tx threads cover the chunks of a row (a power of two, at most a
       warp: a warp reads 512 contiguous bytes where a row is narrower), the
       other 512 / tx threads of a block take rows.
-    - At most _SBR_BLOCKS_PER_SM blocks per SM, one wave (unless the tiles
+    - At most ``blocks_per_sm`` blocks per SM, one wave (unless the tiles
       of one row group are more), so that the large sites fill the card;
       but every thread gets at least one full loop trip of _SBR_UNROLL
       rows, so a small site gets fewer blocks and no block without rows
@@ -218,14 +250,14 @@ def _sbr_forward_plan(m: int, c: int, dtype: torch.dtype,
       slower on an H100). A group's rows are a multiple of the rows a block
       takes per trip, and its offsets fit in 32 bits."""
     if m < 1 or c < 1:
-        raise ValueError(f"scale_bias_relu needs m, c >= 1, got ({m}, {c})")
+        raise ValueError(f"a kernel over rows needs m, c >= 1, got ({m}, {c})")
     vec = _vector_width(c, dtype, data_ptrs)
     chunks = c // vec
     tx = min(32, 1 << (chunks - 1).bit_length())
     ty = _ROW_THREADS // tx
     tiles = _cdiv(chunks, tx)
     trip = ty * _SBR_UNROLL
-    groups = min(max(1, sms * _SBR_BLOCKS_PER_SM // tiles), _cdiv(m, trip))
+    groups = min(max(1, sms * blocks_per_sm // tiles), _cdiv(m, trip))
     rows = min(_cdiv(_cdiv(m, groups), trip) * trip, _most_rows(c, trip))
     groups = _cdiv(m, rows)
     _check_groups(groups, rows, m, c)
@@ -503,13 +535,8 @@ def scale_bias_relu_backward(
     scale_bias_relu's x); dx keeps it."""
     name = "scale_bias_relu_backward"
     _check_channels_innermost(x, name)
-    if g.dtype != x.dtype or not _same_layout(x, g):
-        raise ValueError(f"{name}: g must have x's dtype, shape and layout "
-                         f"(x {x.dtype} {tuple(x.shape)} {x.stride()}, g "
-                         f"{g.dtype} {tuple(g.shape)} {g.stride()})")
+    _check_pair(x, g, name)
     _check_channel_vectors(x, name, scale, bias)
-    if g.device != x.device:
-        raise ValueError(f"{name}: x and g must be on one device")
     if x.device.type == "cpu":
         return scale_bias_relu_backward_reference(x, g, scale, bias)
     _require_cuda(x, name)
@@ -650,3 +677,208 @@ def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 channel_stats.launches = 0
 channel_stats.scalar_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the epilogue of training BatchNorm: bn_affine_act, bn_act_sums, bn_act_dx
+# ---------------------------------------------------------------------------
+
+
+def channels_innermost(x: torch.Tensor) -> torch.Tensor:
+    """x where its channels are already innermost (4-D channels_last or 2-D
+    contiguous), as the kernels over rows take it, else a copy of it laid
+    out so."""
+    if x.ndim == 4:
+        return x.contiguous(memory_format=torch.channels_last)
+    if x.ndim == 2:
+        return x.contiguous()
+    raise ValueError(f"expects a 4-D or 2-D x, got {x.ndim}-D")
+
+
+def bn_affine_act_reference(x: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, act: bool) -> torch.Tensor:
+    """Plain version of bn_affine_act: f32 math, output in x's dtype."""
+    y = x.float() * _channel_view(x, scale) + _channel_view(x, bias)
+    if act:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x.dtype)
+
+
+def bn_affine_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  act: bool) -> torch.Tensor:
+    """``x * scale + bias``, then ReLU if ``act``, with f32 per-channel scale
+    and bias, in f32, written in x's dtype: the forward of training
+    BatchNorm. x is laid out as scale_bias_relu's (channels innermost, C =
+    x.shape[1]), and the output keeps it. Not differentiable itself: its
+    gradient is bn_act_sums, then bn_act_dx."""
+    name = "bn_affine_act"
+    _check_channels_innermost(x, name)
+    _check_channel_vectors(x, name, scale, bias)
+    if x.device.type == "cpu":
+        return bn_affine_act_reference(x, scale, bias, act)
+    _require_cuda(x, name)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    c = x.shape[1]
+    m = x.numel() // c
+    plan = _sbr_forward_plan(m, c, x.dtype, (x.data_ptr(), out.data_ptr()),
+                             _sm_count(x.device))
+    lib = _lib()
+    err = lib.rppe_bn_affine_act(
+        x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(), m, c,
+        int(x.dtype == torch.bfloat16), int(act), plan.vec, plan.block[0],
+        plan.tiles, plan.groups, plan.rows_per_group, x.device.index,
+        _stream(x))
+    _check_launch(lib, err, name)
+    bn_affine_act.launches += 1
+    bn_affine_act.scalar_launches += plan.vec == 1
+    return out
+
+
+bn_affine_act.launches = 0
+bn_affine_act.scalar_launches = 0
+
+
+def _act_grad(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, act: bool) -> torch.Tensor:
+    """g in f32 where the ReLU passed it, 0 where it did not (a select, as
+    torch.relu's gradient is), or all of g without ``act``."""
+    gf = g.float()
+    if not act:
+        return gf
+    pre = x.float() * _channel_view(x, scale) + _channel_view(x, bias)
+    return torch.where(pre > 0, gf, 0.0)
+
+
+def bn_act_sums_reference(x: torch.Tensor, g: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor,
+                          act: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of bn_act_sums: (sum(gm), sum(gm * x)) in f32."""
+    gm = _act_grad(x, g, scale, bias, act)
+    dims = tuple(d for d in range(x.ndim) if d != 1)
+    return torch.sum(gm, dim=dims), torch.sum(gm * x.float(), dim=dims)
+
+
+def bn_act_sums(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, act: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first pass of training BatchNorm's backward, in one read of x
+    and g: with gm = g where ``x * scale + bias > 0`` (f32, rounded as
+    bn_affine_act rounds it) and 0 elsewhere if ``act``, else gm = g, the
+    per-channel f32 sums ``sum(gm)`` and ``sum(gm * x)``.
+
+    x and g have one dtype and one layout, channels innermost (as
+    scale_bias_relu_backward's)."""
+    name = "bn_act_sums"
+    _check_channels_innermost(x, name)
+    _check_pair(x, g, name)
+    _check_channel_vectors(x, name, scale, bias)
+    if x.device.type == "cpu":
+        return bn_act_sums_reference(x, g, scale, bias, act)
+    _require_cuda(x, name)
+    c = x.shape[1]
+    m = x.numel() // c if c else 0
+    if m == 0:
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return zeros, zeros.clone()
+    sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    plan = _reduction_plan(m, c, x.dtype, (x.data_ptr(), g.data_ptr()),
+                           _sm_count(x.device))
+    part = torch.empty((2, plan.groups, c), dtype=torch.float32,
+                       device=x.device)
+    stream = _stream(x)
+    lib = _lib()
+    err = lib.rppe_bn_act_sums(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), m, c,
+        int(x.dtype == torch.bfloat16), int(act), plan.vec, plan.block[0],
+        plan.tiles, plan.groups, plan.rows_per_group, part.data_ptr(),
+        _ticket_buffer(x.device, stream, plan.tiles).data_ptr(),
+        sums[0].data_ptr(), sums[1].data_ptr(), x.device.index, stream)
+    _check_launch(lib, err, name)
+    bn_act_sums.launches += 1
+    bn_act_sums.scalar_launches += plan.vec == 1
+    return sums[0], sums[1]
+
+
+bn_act_sums.launches = 0
+bn_act_sums.scalar_launches = 0
+
+
+def bn_dx_coefficients(sum_g: torch.Tensor, sum_gx: torch.Tensor,
+                       gamma: torch.Tensor, mean: torch.Tensor,
+                       inv: torch.Tensor, n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The closed form's per-channel (a, b, c) of ``dx = gm*a + x*b + c``:
+    ``dx = (gamma*inv/n) * (n*gm - sum(gm) - xhat * sum(gm * xhat))`` with
+    ``xhat = (x - mean) * inv`` and ``sum(gm * xhat) = (sum(gm * x) - mean *
+    sum(gm)) * inv``, over the ``n`` elements of a channel. bn_act_dx's
+    kernel computes each in this order, every operation rounded once; n
+    divides as an f32 tensor (a true quotient on the card too, where a
+    Python number would become a product with its reciprocal)."""
+    nf = torch.full_like(sum_g, float(n))
+    sum_g_xhat = (sum_gx - mean * sum_g) * inv
+    a = gamma * inv
+    b = -gamma * (inv * inv) * sum_g_xhat / nf
+    c = -(a * sum_g / nf) - b * mean
+    return a, b, c
+
+
+def bn_act_dx_reference(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, act: bool, sum_g: torch.Tensor,
+                        sum_gx: torch.Tensor, gamma: torch.Tensor,
+                        mean: torch.Tensor, inv: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """Plain version of bn_act_dx: f32 math, dx in x's dtype."""
+    gm = _act_grad(x, g, scale, bias, act)
+    a, b, c = bn_dx_coefficients(sum_g, sum_gx, gamma, mean, inv, n)
+    return (gm * _channel_view(x, a) + x.float() * _channel_view(x, b)
+            + _channel_view(x, c)).to(x.dtype)
+
+
+def bn_act_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, act: bool, sum_g: torch.Tensor,
+              sum_gx: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+              inv: torch.Tensor, n: int) -> torch.Tensor:
+    """The second pass of training BatchNorm's backward, in one read of x
+    and g: ``dx = gm*a + x*b + c`` in f32, written in x's dtype and layout,
+    with gm as bn_act_sums takes it, and (a, b, c) from bn_dx_coefficients
+    of the sums (the global batch's on a rank of a data-parallel group),
+    gamma, the batch mean, inv = rsqrt(var + eps) and the count n, computed
+    in the kernel.
+
+    x and g as bn_act_sums takes them; scale, bias, the sums, gamma, mean
+    and inv are f32 (C,)."""
+    name = "bn_act_dx"
+    _check_channels_innermost(x, name)
+    _check_pair(x, g, name)
+    _check_channel_vectors(x, name, scale, bias, sum_g, sum_gx, gamma, mean,
+                           inv)
+    if x.device.type == "cpu":
+        return bn_act_dx_reference(x, g, scale, bias, act, sum_g, sum_gx,
+                                   gamma, mean, inv, n)
+    _require_cuda(x, name)
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    c = x.shape[1]
+    m = x.numel() // c
+    plan = _sbr_forward_plan(m, c, x.dtype,
+                             (x.data_ptr(), g.data_ptr(), dx.data_ptr()),
+                             _sm_count(x.device), _DX_BLOCKS_PER_SM)
+    lib = _lib()
+    err = lib.rppe_bn_act_dx(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        sum_g.data_ptr(), sum_gx.data_ptr(), gamma.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), float(n), m, c,
+        int(x.dtype == torch.bfloat16), int(act), plan.vec, plan.block[0],
+        plan.tiles, plan.groups, plan.rows_per_group, dx.data_ptr(),
+        x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    bn_act_dx.launches += 1
+    bn_act_dx.scalar_launches += plan.vec == 1
+    return dx
+
+
+bn_act_dx.launches = 0
+bn_act_dx.scalar_launches = 0

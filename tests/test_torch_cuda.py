@@ -11,7 +11,10 @@ Tolerances: normalize_u8 and scale_bias_relu round x * s + b twice, as
 their plain versions do, and convert to bf16 to nearest even, as
 ``.to(torch.bfloat16)`` does, so they equal the plain versions exactly (NaN
 where the plain version has NaN). The two reductions sum in another order
-than the plain versions: 1e-5 of the sum of magnitudes per channel.
+than the plain versions: 1e-5 of the sum of magnitudes per channel. The
+training BatchNorm's epilogue (bn_affine_act, bn_act_sums, bn_act_dx)
+rounds as its plain versions do too: its forward and, given the same sums,
+its dx equal them exactly; its sums are held as the other reductions'.
 """
 
 import time
@@ -234,6 +237,98 @@ def test_scale_bias_relu_backward_kernel_matches_plain(cuda, shape, dtype):
     assert torch.all((db - rdb).abs() <= 1e-5 * gmf.abs().sum(0) + 1e-6)
 
 
+# the BN epilogue's sites: pr5's stem, a stage-4 site and the V = 1 path
+BN_EPILOGUE_SHAPES = [PR5_STEM_SHAPE, (16, 512, 4, 4), (4099, 100)]
+
+
+def _bn_epilogue_inputs(shape, dtype, cuda, seed):
+    """x, g and the f32 per-channel (scale, bias, sum_g, sum_gx, gamma,
+    mean, inv) of a training BatchNorm site, with n: the statistics of x
+    itself, and sums on the scale of a real backward's."""
+    x = _stats_inputs(shape, dtype, cuda, seed=seed)
+    gout = _stats_inputs(shape, dtype, cuda, seed=seed + 1, shift=0.0)
+    c = x.shape[1]
+    n = x.numel() // c
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    gamma = torch.rand(c, generator=gen, device=cuda) + 0.5
+    beta = torch.randn(c, generator=gen, device=cuda) * 0.5
+    s, ss = fused.channel_stats(x)
+    mean = s / n
+    inv = torch.rsqrt(torch.clamp_min(ss / n - mean * mean, 0.0) + 1e-5)
+    scale = gamma * inv
+    bias = beta - mean * scale
+    sum_g, sum_gx = fused.bn_act_sums_reference(x, gout, scale, bias, True)
+    return x, gout, [scale, bias, sum_g, sum_gx, gamma, mean, inv], n
+
+
+@pytest.mark.parametrize("act", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_EPILOGUE_SHAPES)
+def test_bn_epilogue_kernels_match_plain(cuda, shape, dtype, act):
+    x, gout, vecs, n = _bn_epilogue_inputs(shape, dtype, cuda, seed=20)
+    scale, bias, _, _, gamma, mean, inv = vecs
+    wrappers = (fused.bn_affine_act, fused.bn_act_sums, fused.bn_act_dx)
+    before = [(w.launches, w.scalar_launches) for w in wrappers]
+    y = fused.bn_affine_act(x, scale, bias, act)
+    sum_g, sum_gx = fused.bn_act_sums(x, gout, scale, bias, act)
+    dx = fused.bn_act_dx(x, gout, scale, bias, act, sum_g, sum_gx, gamma,
+                         mean, inv, n)
+    torch.cuda.synchronize()
+    scalar = int(bool(_scalar_path(x)))
+    assert [(w.launches, w.scalar_launches) for w in wrappers] == [
+        (k + 1, v + scalar) for k, v in before]
+    # the forward, exactly
+    assert y.dtype == dtype and y.stride() == x.stride()
+    _exact(y, fused.bn_affine_act_reference(x, scale, bias, act))
+    # the sums, to the reductions' tolerance
+    rg, rgx = fused.bn_act_sums_reference(x, gout, scale, bias, act)
+    gm = fused.channel_rows(gout).float()
+    if act:
+        gm = gm * (fused.channel_rows(y).float() > 0)
+    xf = fused.channel_rows(x).float()
+    assert torch.all((sum_g - rg).abs() <= 1e-5 * gm.abs().sum(0) + 1e-6)
+    assert torch.all((sum_gx - rgx).abs()
+                     <= 1e-5 * (gm * xf).abs().sum(0) + 1e-6)
+    # dx from the same sums, exactly
+    assert dx.dtype == dtype and dx.stride() == x.stride()
+    _exact(dx, fused.bn_act_dx_reference(x, gout, scale, bias, act, sum_g,
+                                         sum_gx, gamma, mean, inv, n))
+
+
+@pytest.mark.parametrize("act", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_epilogue_kernels_place_nan_and_inf_as_plain(cuda, dtype, act):
+    """NaN, +inf and -inf in x and in g: the forward keeps NaN through its
+    ReLU; the backward selects g by the ReLU's decision, so a NaN or inf g
+    where the ReLU is off gives 0 there, as torch.relu's gradient does."""
+    shape = (4, 64, 16, 16)
+    x, gout, vecs, n = _bn_epilogue_inputs(shape, dtype, cuda, seed=30)
+    _nonfinite_(x)
+    _nonfinite_(gout, 8)
+    scale, bias, sum_g, sum_gx, gamma, mean, inv = vecs
+    ref = fused.bn_affine_act_reference(x, scale, bias, act)
+    assert ref.isnan().any() and ref.isinf().any()
+    _exact(fused.bn_affine_act(x, scale, bias, act), ref)
+    got = fused.bn_act_sums(x, gout, scale, bias, act)
+    want = fused.bn_act_sums_reference(x, gout, scale, bias, act)
+    # NaN where x is NaN (0 * NaN in sum(gm * x)) or an unmasked g is; the
+    # channels past the fourth are finite in x and g
+    assert any(bool(w.isnan().any()) for w in want)
+    assert all(bool(w[4:].isfinite().all()) for w in want)
+    for u, w in zip(got, want):
+        assert torch.equal(u.isnan(), w.isnan())
+        assert torch.equal(u.isinf(), w.isinf())
+        inf = w.isinf()
+        assert torch.equal(u[inf], w[inf])
+    # dx from finite sums: NaN and inf where x or g put them
+    dx = fused.bn_act_dx(x, gout, scale, bias, act, sum_g, sum_gx, gamma,
+                         mean, inv, n)
+    rdx = fused.bn_act_dx_reference(x, gout, scale, bias, act, sum_g, sum_gx,
+                                    gamma, mean, inv, n)
+    assert rdx.isnan().any()
+    _exact(dx, rdx)
+
+
 def _bits(t):
     return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
@@ -248,12 +343,14 @@ def _reductions_at(shape, dtype, cuda):
     b = torch.randn(x.shape[1], generator=gen, device=cuda) * 0.5
     return {"channel_stats": lambda: fused.channel_stats(x),
             "scale_bias_relu_backward":
-                lambda: fused.scale_bias_relu_backward(x, gout, s, b)}
+                lambda: fused.scale_bias_relu_backward(x, gout, s, b),
+            "bn_act_sums": lambda: fused.bn_act_sums(x, gout, s, b, True)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["channel_stats",
-                                    "scale_bias_relu_backward"])
+                                    "scale_bias_relu_backward",
+                                    "bn_act_sums"])
 def test_reduction_is_bitwise_repeatable_over_1000_launches(cuda, kernel,
                                                             dtype):
     # only the ticket is atomic: a partial missing from the last block's
@@ -289,7 +386,8 @@ def _device_kernels(call, tries=3):
 
 
 @pytest.mark.parametrize("kernel", ["channel_stats",
-                                    "scale_bias_relu_backward"])
+                                    "scale_bias_relu_backward",
+                                    "bn_act_sums"])
 @pytest.mark.parametrize("shape", [STEM_SHAPE, (16, 512, 4, 4), (4099, 100)])
 def test_reduction_call_is_one_kernel_launch(cuda, kernel, shape):
     call = _reductions_at(shape, torch.float32, cuda)[kernel]
@@ -301,17 +399,38 @@ def test_reduction_call_is_one_kernel_launch(cuda, kernel, shape):
 @pytest.mark.parametrize("kernel,shape", [
     ("normalize_u8", (128, 128, 128, 3)), ("normalize_u8", (3, 37, 41, 3)),
     ("scale_bias_relu", STEM_SHAPE), ("scale_bias_relu", (16, 512, 4, 4)),
-    ("scale_bias_relu", (4099, 100))])
+    ("scale_bias_relu", (4099, 100)), ("bn_affine_act", STEM_SHAPE),
+    ("bn_affine_act", (16, 512, 4, 4)), ("bn_affine_act", (4099, 100)),
+    ("bn_act_dx", STEM_SHAPE), ("bn_act_dx", (16, 512, 4, 4)),
+    ("bn_act_dx", (4099, 100))])
 def test_elementwise_call_is_one_kernel_launch(cuda, kernel, shape, dtype):
     if kernel == "normalize_u8":
         img = torch.zeros(shape, dtype=torch.uint8, device=cuda)
         kernels = _device_kernels(
             lambda: fused.normalize_u8(img, MEAN, STD, dtype))
+    elif kernel.startswith("bn_"):
+        x, gout, vecs, n = _bn_epilogue_inputs(shape, dtype, cuda, seed=14)
+        s, b = vecs[:2]
+        if kernel == "bn_affine_act":
+            kernels = _device_kernels(
+                lambda: fused.bn_affine_act(x, s, b, True))
+        else:
+            kernels = _device_kernels(
+                lambda: fused.bn_act_dx(x, gout, s, b, True, *vecs[2:], n))
     else:
         x = _stats_inputs(shape, dtype, cuda, seed=13)
         s = torch.ones(x.shape[1], device=cuda)
         kernels = _device_kernels(lambda: fused.scale_bias_relu(x, s, s))
     assert len(kernels) == 1, kernels
+
+
+def _epilogue_counts(before=(0, 0, 0, 0)):
+    """Launches of bn_affine_act, bn_act_sums and bn_act_dx, and the three's
+    one-element launches, less ``before``."""
+    wrappers = (fused.bn_affine_act, fused.bn_act_sums, fused.bn_act_dx)
+    now = (*(w.launches for w in wrappers),
+           sum(w.scalar_launches for w in wrappers))
+    return tuple(a - b for a, b in zip(now, before))
 
 
 def test_training_step_on_cuda_matches_cpu_and_runs_the_kernels(cuda,
@@ -353,12 +472,18 @@ def test_training_step_on_cuda_matches_cpu_and_runs_the_kernels(cuda,
             counts = (fused.scale_bias_relu.launches,
                       fused.scale_bias_relu_backward.launches,
                       fused.channel_stats.launches)
+            epilogue = _epilogue_counts()
             loss = forward_backward(state.model, b, cfg.train)["loss"]
             torch.cuda.synchronize()
             seen = (fused.scale_bias_relu.launches - counts[0],
                     fused.scale_bias_relu_backward.launches - counts[1],
                     fused.channel_stats.launches - counts[2])
             assert seen == (want if dev != "cpu" else (0, 0, 0)), route
+            # the BN epilogue's forward, sums and dx at each of the 20
+            # BatchNorms on the pallas route, none of them one element at a
+            # time (every C a multiple of 8)
+            sites = 20 if route == "pallas" and dev != "cpu" else 0
+            assert _epilogue_counts(epilogue) == (sites, sites, sites, 0), route
             grads[str(dev)] = (loss.item(), {
                 k: p.grad.cpu() for k, p in state.model.named_parameters()})
         (lc, gc), (lg, gg) = grads["cpu"], grads[str(cuda)]
@@ -402,6 +527,7 @@ def test_bottleneck_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
             counts = (fused.scale_bias_relu.launches,
                       fused.scale_bias_relu_backward.launches,
                       fused.channel_stats.launches)
+            epilogue = _epilogue_counts()
             loss = (model(x.to(dev)) * g.to(dev)).sum()
             loss.backward()
             torch.cuda.synchronize()
@@ -409,6 +535,8 @@ def test_bottleneck_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
                     fused.scale_bias_relu_backward.launches - counts[1],
                     fused.channel_stats.launches - counts[2])
             assert seen == (want if dev != "cpu" else (0, 0, 0)), route
+            sites = 17 if route == "pallas" and dev != "cpu" else 0
+            assert _epilogue_counts(epilogue) == (sites, sites, sites, 0), route
             runs[str(dev)] = (loss.item(),
                               {k: p.grad.cpu()
                                for k, p in model.named_parameters()},

@@ -175,6 +175,99 @@ def test_wrappers_route_cpu_tensors_to_plain_versions_without_counting():
             fused.scale_bias_relu.launches) == before
 
 
+def _bn_epilogue_args(rs, shape=(2, 8, 8, 16), dtype=torch.float32):
+    """x, g (NCHW in channels_last memory) and the seven f32 per-channel
+    vectors of the BN epilogue's wrappers: scale, bias, the two sums,
+    gamma, mean and inv."""
+    c = shape[-1]
+    x = _nchw_channels_last(rs.randn(*shape).astype(np.float32)).to(dtype)
+    g = _nchw_channels_last(rs.randn(*shape).astype(np.float32)).to(dtype)
+    vec = [torch.from_numpy(rs.randn(c).astype(np.float32)) for _ in range(6)]
+    inv = torch.from_numpy(rs.rand(c).astype(np.float32) + 0.5)
+    return x, g, vec + [inv]
+
+
+def test_bn_epilogue_wrappers_route_cpu_tensors_to_plain_versions_without_counting():
+    x, g, (s, b, sg, sgx, gamma, mean, inv) = _bn_epilogue_args(
+        np.random.RandomState(5))
+    n = x.numel() // x.shape[1]
+    wrappers = (fused.bn_affine_act, fused.bn_act_sums, fused.bn_act_dx)
+
+    def counts():
+        return tuple(getattr(w, k) for w in wrappers
+                     for k in ("launches", "scalar_launches"))
+
+    before = counts()
+    for act in (False, True):
+        assert torch.equal(fused.bn_affine_act(x, s, b, act),
+                           fused.bn_affine_act_reference(x, s, b, act))
+        for got, want in zip(fused.bn_act_sums(x, g, s, b, act),
+                             fused.bn_act_sums_reference(x, g, s, b, act)):
+            assert torch.equal(got, want)
+        args = (x, g, s, b, act, sg, sgx, gamma, mean, inv, n)
+        assert torch.equal(fused.bn_act_dx(*args),
+                           fused.bn_act_dx_reference(*args))
+    assert counts() == before
+
+
+def test_bn_epilogue_relu_passes_the_gradient_where_the_forward_is_positive():
+    """With act, the forward is relu(x*s + b) and the backward's gm is g
+    where the forward's output is positive, else 0, a NaN g included; the
+    sums and dx without act are those of gm with act off."""
+    rs = np.random.RandomState(6)
+    x, g, (s, b, sg, sgx, gamma, mean, inv) = _bn_epilogue_args(rs)
+    g = g.clone()
+    fused.channel_rows(g)[::7, 3] = float("nan")
+    y = fused.bn_affine_act(x, s, b, True)
+    assert torch.equal(y, torch.relu(fused.bn_affine_act(x, s, b, False)))
+    on = y > 0
+    assert on.any() and (~on).any()
+    gm = torch.where(on, g, torch.zeros_like(g))
+    assert gm.isnan().any() and not gm[~on].isnan().any()
+    for got, want in zip(fused.bn_act_sums(x, g, s, b, True),
+                         fused.bn_act_sums(x, gm, s, b, False)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    n = x.numel() // x.shape[1]
+    torch.testing.assert_close(
+        fused.bn_act_dx(x, g, s, b, True, sg, sgx, gamma, mean, inv, n),
+        fused.bn_act_dx(x, gm, s, b, False, sg, sgx, gamma, mean, inv, n),
+        rtol=0, atol=0, equal_nan=True)
+
+
+def _bad_bn_epilogue(case):
+    x = torch.zeros((2, 8, 4, 4)).to(memory_format=torch.channels_last)
+    v = torch.ones(8)
+    vecs = (v, v, v, v, v)                   # sums, gamma, mean, inv
+    if case == "float16_x":
+        return lambda: fused.bn_affine_act(x.half(), v, v, True)
+    if case == "nchw_contiguous":
+        return lambda: fused.bn_affine_act(x.contiguous(), v, v, False)
+    if case == "float64_bias":
+        return lambda: fused.bn_act_sums(x, x, v, v.double(), True)
+    if case == "g_other_layout":
+        return lambda: fused.bn_act_sums(x, x.contiguous(), v, v, True)
+    if case == "g_other_dtype":
+        return lambda: fused.bn_act_dx(x, x.to(torch.bfloat16), v, v, True,
+                                       *vecs, 32)
+    if case == "wrong_channels":
+        return lambda: fused.bn_act_dx(x, x, v, v, False, v[:4], *vecs[1:],
+                                       32)
+    if case == "three_d":
+        return lambda: fused.channels_innermost(x[0])
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16_x", TypeError), ("nchw_contiguous", ValueError),
+    ("float64_bias", TypeError), ("g_other_layout", ValueError),
+    ("g_other_dtype", ValueError), ("wrong_channels", ValueError),
+    ("three_d", ValueError)])
+def test_bn_epilogue_wrappers_reject_what_the_kernels_do_not_take(case,
+                                                                  error):
+    with pytest.raises(error):
+        _bad_bn_epilogue(case)()
+
+
 def _bad_normalize(case):
     img = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
     if case == "float_input":
@@ -373,6 +466,44 @@ def test_sbr_forward_plan_covers_every_element_once(m, c, dtype, align):
     # more); at a large site it fills the card; each thread gets a whole
     # loop trip of 4 rows, and no block is planned without rows
     assert tiles * groups <= max(2 * 132, tiles)
+    if m * c >= 2 ** 22:
+        assert tiles * groups >= 128
+    assert plan.rows_per_group % (4 * ty) == 0
+    assert (groups - 1) * plan.rows_per_group < m
+
+
+# (M, C) of the forty BatchNorm sites of a pr5 step (two encoders of 20,
+# 3072 frames each at 128 px): the stem, then each stage of ResNet-18
+PR5_BN_SITES = [(3072 * 64 * 64, 64), (3072 * 32 * 32, 64),
+                (3072 * 16 * 16, 128), (3072 * 8 * 8, 256),
+                (3072 * 4 * 4, 512)]
+
+
+@pytest.mark.parametrize("align", ["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("m,c", PR5_BN_SITES + STEP_REDUCTION_SITES
+                         + RAGGED_REDUCTIONS)
+def test_dx_plan_covers_every_element_once_at_one_block_per_sm(m, c, dtype,
+                                                               align):
+    """bn_act_dx's plan: K2's forward plan at one block per SM, 16-byte
+    accesses where x, g and dx allow them, every element once."""
+    ptr = ROW_PTRS[align]
+    plan = fused._sbr_forward_plan(m, c, dtype, (1 << 20, 1 << 21, ptr),
+                                   sms=132,
+                                   blocks_per_sm=fused._DX_BLOCKS_PER_SM)
+    vec16 = 16 // dtype.itemsize
+    assert plan.vec == (vec16 if c % vec16 == 0 and align == "aligned"
+                        else 1)
+    tx, ty = plan.block
+    tiles, groups = plan.grid
+    assert tx * ty == RED_THREADS and tx & (tx - 1) == 0 and tx <= 32
+    assert 1 <= groups <= 65535 and plan.rows_per_group * c <= 2 ** 31 - 1
+    rows_hit, ch_hit = _emulate_rows(plan, m, c)
+    assert (rows_hit == 1).all() and (ch_hit == 1).all()
+    # one wave of one block per SM (unless one group's tiles are more), a
+    # large site filling the card
+    assert tiles * groups <= max(132, tiles)
     if m * c >= 2 ** 22:
         assert tiles * groups >= 128
     assert plan.rows_per_group % (4 * ty) == 0

@@ -77,6 +77,9 @@ from rgb_proprioceptive_pose_estimator_tpu_torch.losses.pose import (
 )
 from rgb_proprioceptive_pose_estimator_tpu_torch.models.blocks import BatchNormAct
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops import fused
+from rgb_proprioceptive_pose_estimator_tpu_torch.ops.bn_stats import (
+    channel_sum_sumsq_matmul,
+)
 from rgb_proprioceptive_pose_estimator_tpu_torch.ops.fused_bn import bn_train
 from rgb_proprioceptive_pose_estimator_tpu_torch.runtime import native
 from rgb_proprioceptive_pose_estimator_tpu_torch.utils.convert import (
@@ -276,6 +279,103 @@ def test_bn_train_matches_jax(impl, dtype):
                                atol=1e-4)
     np.testing.assert_allclose(mean.numpy(), _f32(m_j), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(var.numpy(), _f32(v_j), rtol=1e-5, atol=1e-6)
+
+
+def _bn_train_run(impl, tdt, act, x, gamma, beta, g):
+    """(y, dx, dgamma, dbeta) of bn_train, with the ReLU inside (``act``
+    True) or as torch.relu after it (``act`` None)."""
+    xt = _nchw(x, tdt).requires_grad_()
+    gt = torch.from_numpy(gamma).requires_grad_()
+    bt = torch.from_numpy(beta).requires_grad_()
+    y, _, _ = bn_train(xt, gt, bt, 1e-5, impl, act=bool(act))
+    if act is None:
+        y = torch.relu(y)
+    y.backward(_nchw(g, tdt))
+    return y.detach(), xt.grad, gt.grad, bt.grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["matmul", "pallas"])
+def test_bn_train_with_act_is_relu_of_bn_train(impl, dtype):
+    # the ReLU inside bn_train decides on the f32 pre-activation, rounded
+    # as the forward rounds it; torch.relu after it on y, its rounding to
+    # x's dtype, which keeps the sign: the same values and gradients, bit
+    # for bit (no pre-activation here is a subnormal that rounds to 0)
+    _, tdt = DTYPES[dtype]
+    x, gamma, beta, g = _bn_inputs((8, 6, 6, 64), seed=15)
+    fused_act = _bn_train_run(impl, tdt, True, x, gamma, beta, g)
+    after = _bn_train_run(impl, tdt, None, x, gamma, beta, g)
+    assert (fused_act[0] == 0).any() and (fused_act[0] > 0).any()
+    for got, want in zip(fused_act, after):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _closed_form_before_kernels(x, g, gamma, beta, eps=1e-5):
+    """The plain-torch training BatchNorm that ops/fused_bn ran before its
+    epilogue became kernels (matmul statistics, no ReLU), line by line."""
+    dims = (0, 2, 3)
+    n = x.numel() // x.shape[1]
+    xf = x.float()
+    s, ss = channel_sum_sumsq_matmul(x)
+    mean = s / n
+    var = torch.clamp_min(ss / n - torch.square(mean), 0.0)
+    inv = torch.rsqrt(var + eps)
+    scale = gamma * inv
+    bias = beta - mean * scale
+    view = (1, -1, 1, 1)
+    y = (xf * scale.view(view) + bias.view(view)).to(x.dtype)
+    gf = g.float()
+    sum_g = torch.sum(gf, dim=dims)
+    cross = torch.sum(gf * xf, dim=dims)
+    sum_g_xhat = (cross - mean * sum_g) * inv
+    a = gamma * inv
+    b = -gamma * torch.square(inv) * sum_g_xhat / n
+    c = -(a * sum_g / n) - b * mean
+    dx = (gf * a.view(view) + xf * b.view(view) + c.view(view)).to(x.dtype)
+    return y, dx, sum_g_xhat, sum_g, (scale, bias, mean, inv, sum_g, cross)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_epilogue_plain_versions_are_the_closed_form_before_kernels(dtype):
+    """The plain versions that stand in for the kernels on the CPU compute
+    what the plain-torch epilogue computed, bit for bit, sums and all."""
+    _, tdt = DTYPES[dtype]
+    x, gamma, beta, g = _bn_inputs((8, 6, 6, 64), seed=16)
+    xt, gt = _nchw(x, tdt), _nchw(g, tdt)
+    gamma_t, beta_t = torch.from_numpy(gamma), torch.from_numpy(beta)
+    y0, dx0, dgamma0, dbeta0, (scale, bias, mean, inv, sum_g, cross) = (
+        _closed_form_before_kernels(xt, gt, gamma_t, beta_t))
+    assert torch.equal(fused.bn_affine_act(xt, scale, bias, False), y0)
+    assert torch.equal(fused.bn_affine_act(xt, scale, bias, True),
+                       torch.relu(y0))
+    got_g, got_gx = fused.bn_act_sums(xt, gt, scale, bias, False)
+    assert torch.equal(got_g, sum_g) and torch.equal(got_gx, cross)
+    n = xt.numel() // xt.shape[1]
+    assert torch.equal(fused.bn_act_dx(xt, gt, scale, bias, False, sum_g,
+                                       cross, gamma_t, mean, inv, n), dx0)
+    y, _, _ = bn_train(xt.requires_grad_(), gamma_t.requires_grad_(),
+                       beta_t.requires_grad_(), 1e-5, "matmul")
+    y.backward(gt)
+    assert torch.equal(y, y0) and torch.equal(xt.grad, dx0)
+    assert torch.equal(gamma_t.grad, dgamma0)
+    assert torch.equal(beta_t.grad, dbeta0)
+
+
+def test_bn_train_copies_and_counts_a_gradient_in_another_layout():
+    x, gamma, beta, g = _bn_inputs((2, 4, 4, 16), seed=17)
+    xt = _nchw(x).requires_grad_()
+    y, _, _ = bn_train(xt, torch.from_numpy(gamma), torch.from_numpy(beta),
+                       1e-5, "pallas", act=True)
+    before = bn_train.grad_layout_copies
+    g_nchw = _nchw(g).contiguous()                     # NCHW-contiguous
+    y.backward(g_nchw)
+    assert bn_train.grad_layout_copies == before + 1
+    xt2 = _nchw(x).requires_grad_()
+    y2, _, _ = bn_train(xt2, torch.from_numpy(gamma), torch.from_numpy(beta),
+                        1e-5, "pallas", act=True)
+    y2.backward(_nchw(g))
+    assert bn_train.grad_layout_copies == before + 1
+    assert torch.equal(xt.grad, xt2.grad)
 
 
 @pytest.mark.parametrize("route", ["reduce", "matmul", "pallas"])
